@@ -5,7 +5,7 @@ Counterpart of the reference's Annoy sweep (reference:
 examples/annoy.py): build Annoy forests of increasing size, sweep
 search_k, and print `recall= qps=` lines that plot_bench.py can scrape
 alongside the IVF sweep. Requires the `annoy` package (pure CPU — this
-is the baseline the TPU index is compared against); exits with a clear
+is the baseline the accelerator index is compared against); exits with a clear
 message when it is not installed.
 """
 
@@ -65,7 +65,7 @@ trus_file = (f"trus_{simple_name}_k_neighbours={k_neighbours}_"
 if os.path.isfile(trus_file):
     true_neighbours = np.load(trus_file)
 else:
-    print("Computing true neighbours (TPU brute force)...")
+    print("Computing true neighbours (brute force)...")
     true_neighbours = np.asarray(
         knn_brute(queries, data, k_neighbours, metric=args.metric))
     np.save(trus_file, true_neighbours)

@@ -4,7 +4,7 @@
 Fits a 4-bit PQ, runs the full-scan distance estimate for a batch of
 queries in one jitted sweep, and reports the rank distribution of the
 true nearest neighbor plus QPS. The reference loops queries one at a
-time through Cython; here the whole batch is one TPU dispatch.
+time through Cython; here the whole batch is one device dispatch.
 """
 
 import argparse

@@ -3,7 +3,7 @@
 
 Plays the role of the reference's Annoy comparison
 (reference: examples/annoy.py) with the baseline that actually matters
-on TPU: exact brute force is a single MXU matmul + top_k, so any
+on an accelerator: exact brute force is a single matmul + top_k, so any
 approximate index must beat IT, not a CPU tree library. Recall is 1.0
 by construction; this prints the QPS to draw as a vertical line.
 """

@@ -2,7 +2,7 @@
 """Pipelined serving with ``query_stream(device_out=True)``.
 
 The reference's serving story is one query per call with ids returned
-to Python (reference: tinyknn/ivf.py:106-163). On a TPU the ids are
+to Python (reference: tinyknn/ivf.py:106-163). On an accelerator the ids are
 usually NOT the product — they feed a next stage (fetch neighbor
 embeddings, pool them, score a candidate set). This example runs that
 whole two-stage pipeline on device:
@@ -17,7 +17,7 @@ stages (ids downloaded, then re-uploaded for the gather) — the shape
 every per-query-loop port pays.
 
 Run on anything: small shapes by default (CPU-friendly); pass
-``--glove`` to use the cached GloVe-scale archive on the TPU.
+``--glove`` to use the cached GloVe-scale archive on the GPU.
 
 Usage: python examples/serving_pipeline.py [--glove] [--reps 2 7]
 """
@@ -39,7 +39,7 @@ from tinyknn_tpu import FastPQ, IVF, utils          # noqa: E402
 
 parser = argparse.ArgumentParser()
 parser.add_argument("--glove", action="store_true",
-                    help="GloVe-scale cached archive (TPU)")
+                    help="GloVe-scale cached archive (GPU)")
 parser.add_argument("--reps", type=int, nargs=2, default=[2, 7])
 parser.add_argument("--k", type=int, default=10)
 parser.add_argument("--n-probes", type=int, default=1)

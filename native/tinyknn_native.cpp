@@ -1,6 +1,6 @@
 // Native runtime components for tinyknn_tpu.
 //
-// The TPU owns the compute path (Pallas/XLA); these are the host-side
+// The accelerator owns the compute path (XLA/Pallas); these are the host-side
 // runtime pieces that the reference implements natively or in hot
 // Python loops:
 //

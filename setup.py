@@ -1,7 +1,7 @@
 """Build script: packages tinyknn_tpu and pre-compiles the native helper.
 
-The TPU compute path needs no compilation here (Pallas kernels compile
-at run time via XLA/Mosaic). The only native artifact is the host-side
+The accelerator compute path needs no compilation here (XLA and the
+Pallas kernel compile at run time). The only native artifact is the host-side
 runtime helper (native/tinyknn_native.cpp: inverted-list builder +
 .fvecs reader), which tinyknn_tpu/native.py can also build lazily at
 import time — so a missing toolchain never blocks installation.

@@ -139,8 +139,8 @@ def test_adaptive_r_bucket_vs_gather_medium():
 
 
 def test_fused_scan_matches_xla():
-    """The Pallas fused scan+select path must agree with the XLA path
-    (interpret mode on CPU; bit-exact selection up to ties)."""
+    """The CSR kernel path must agree with the XLA path (interpret mode
+    on CPU, compiled on a GPU; bit-exact selection up to ties)."""
     np.random.seed(15)
     n, d, nq = 600, 16, 32
     X = np.random.randn(n, d).astype(np.float32)
@@ -157,6 +157,60 @@ def test_fused_scan_matches_xla():
         da = np.sort(((X[a[i]] - qs[i]) ** 2).sum(-1))
         db = np.sort(((X[b[i]] - qs[i]) ** 2).sum(-1))
         np.testing.assert_allclose(da, db, rtol=1e-5)
+
+
+def test_auto_scan_is_the_compiled_kernel_on_gpu(gpu):
+    """On the GPU the default engine is the compiled CSR kernel, and it
+    returns what the XLA scan returns."""
+    from tinyknn_tpu.models.ivf import _resolve_scan_impl
+    np.random.seed(15)
+    X = np.random.randn(3000, 32).astype(np.float32)
+    qs = np.random.randn(64, 32).astype(np.float32)
+    ivf = IVF("euclidean", 24, FastPQ(2, seed=3))
+    ivf.fit(X).build(X, n_probes=2)
+    assert _resolve_scan_impl(ivf) == "fused"
+    a = np.asarray(ivf.query(qs, k=8, n_probes=3, mode="bucket"))
+    ivf.set_scan_impl("xla")
+    b = np.asarray(ivf.query(qs, k=8, n_probes=3, mode="bucket"))
+    da = np.sort(((X[a] - qs[:, None]) ** 2).sum(-1), axis=1)
+    db = np.sort(((X[b] - qs[:, None]) ** 2).sum(-1), axis=1)
+    np.testing.assert_allclose(da, db, rtol=1e-5)
+    ivf.set_scan_impl("exact")
+    assert _resolve_scan_impl(ivf) == "exact"
+    tru = np.asarray(knn_brute(qs, X, k=8))
+    got = np.asarray(ivf.query(qs, k=8, n_probes=24, mode="bucket"))
+    rec = np.mean([len(set(g.tolist()) & set(t.tolist())) / 8
+                   for g, t in zip(got, tru)])
+    assert rec >= 0.99, rec
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "angular"])
+@pytest.mark.parametrize("n_probes", [1, 3, 12])
+def test_exact_xla_bucket_matches_gather_and_brute(metric, n_probes):
+    """The plain-XLA exact bucket scan (what scan_impl='exact' runs on
+    the CPU) ranks like the exact gather path, and with every list
+    probed it reproduces brute force."""
+    from tinyknn_tpu.models.ivf import _resolve_scan_impl
+    rng = np.random.default_rng(50 + n_probes)
+    X = rng.standard_normal((1500, 20)).astype(np.float32)
+    qs = rng.standard_normal((40, 20)).astype(np.float32)
+    ivf = IVF(metric, 12, FastPQ(2, rotate_dim=None), scan_impl="exact")
+    ivf.fit(X).build(X, n_probes=1)
+    assert _resolve_scan_impl(ivf) == "exact_xla"
+    a = np.asarray(ivf.query(qs, k=10, n_probes=n_probes, mode="bucket"))
+    b = np.asarray(ivf.query(qs, k=10, n_probes=n_probes, mode="gather"))
+    Xn, qn = X, qs
+    if metric == "angular":
+        Xn = X / np.linalg.norm(X, axis=1, keepdims=True)
+        qn = qs / np.linalg.norm(qs, axis=1, keepdims=True)
+    da = np.sort(((Xn[a] - qn[:, None]) ** 2).sum(-1), axis=1)
+    db = np.sort(((Xn[b] - qn[:, None]) ** 2).sum(-1), axis=1)
+    np.testing.assert_allclose(da, db, rtol=1e-5, atol=1e-6)
+    if n_probes == 12:
+        tru = np.asarray(knn_brute(qs, X, k=10, metric=metric))
+        rec = np.mean([len(set(g.tolist()) & set(t.tolist())) / 10
+                       for g, t in zip(a, tru)])
+        assert rec >= 0.99, rec
 
 
 def test_fused_segmented_approx_recall():

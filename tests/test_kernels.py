@@ -1,133 +1,183 @@
-"""Pallas kernel vs oracle — interpret mode on CPU (reference family 1).
+"""The CSR list-scan kernel vs NumPy oracles, in Pallas interpret mode.
 
-The jit-vs-interpret equality on real TPU is exercised by bench tooling;
-here the kernel's math is pinned against the same NumPy oracle as the
-XLA path, including shape-padding edges.
+On the card the kernel is compiled through Triton; the tests marked
+``gpu`` (run by ``python chip_smoke.py``) compare it there with the XLA
+list scan at GloVe widths. Here its arithmetic, encoding and ragged walk
+are pinned against oracles on the CPU, including empty lists, a list of
+exactly one tile and fold wrap-around.
 """
 
 import numpy as np
 import pytest
-from itertools import product
 
-from tinyknn_tpu.ops.kernels import estimate_scan_pallas
-from tinyknn_tpu.ops.scan import estimate_scan_xla
+import jax.numpy as jnp
 
-np.random.seed(10)
+from tinyknn_tpu.ops.kernels import (ENC_INVALID, code_rows,
+                                     csr_fold_scan, kernel_tables)
+from tinyknn_tpu.ops.packing import pack_codes, pack_codes_tiled
+from tinyknn_tpu.utils.grouping import invert_assignments_csr_tiled
 
-
-@pytest.mark.parametrize("n, b, q", product([16, 100, 300], [8, 56], [1, 5]))
-def test_pallas_matches_xla(n, b, q):
-    codes = np.random.randint(0, 16, size=(n, b), dtype=np.uint8)
-    tables = np.random.randint(-128, 128, size=(q, b, 16)).astype(np.int8)
-    a = np.asarray(estimate_scan_pallas(codes, tables))
-    x = np.asarray(estimate_scan_xla(codes, tables))
-    np.testing.assert_array_equal(a, x)
+# list lengths per case: an empty list, exactly one tile (128), a list
+# that wraps a 1-tile fold (300 points = 3 tiles), a short one
+LENGTHS = [0, 128, 300, 45]
 
 
-def test_pallas_via_dispatcher():
-    from tinyknn_tpu.ops import estimate_scan
-    codes = np.random.randint(0, 16, size=(40, 8), dtype=np.uint8)
-    tables = np.random.randint(-128, 128, size=(2, 8, 16)).astype(np.int8)
-    a = np.asarray(estimate_scan(codes, tables, backend="pallas"))
-    x = np.asarray(estimate_scan(codes, tables, backend="xla"))
-    np.testing.assert_array_equal(a, x)
+@pytest.fixture(params=["interpret",
+                        pytest.param("compiled", marks=pytest.mark.gpu)])
+def interpret(request):
+    """Each oracle test runs the kernel in interpret mode, and compiled
+    through Triton where a GPU is present."""
+    if request.param == "compiled":
+        request.getfixturevalue("gpu")
+        return False
+    return True
 
 
-@pytest.mark.parametrize("n, b, q", product([16, 100], [8, 56], [1, 5]))
-def test_pallas_packed_matches_xla(n, b, q):
-    """In-kernel 4-bit unpack (evens/odds order + table block permute)
-    must agree with the unpacked XLA oracle."""
-    from tinyknn_tpu.ops.packing import pack_codes
-    codes = np.random.randint(0, 16, size=(n, b), dtype=np.uint8)
-    tables = np.random.randint(-128, 128, size=(q, b, 16)).astype(np.int8)
-    a = np.asarray(estimate_scan_pallas(np.asarray(pack_codes(codes)),
-                                        tables, packed=True))
-    x = np.asarray(estimate_scan_xla(codes, tables))
-    np.testing.assert_array_equal(a, x)
+def _assign(lengths, rng):
+    a = np.concatenate([np.full(L, c) for c, L in enumerate(lengths)])
+    return rng.permutation(a)[:, None]
 
 
-@pytest.mark.parametrize("n, b, q", product([16, 200], [8, 56], [1, 9]))
-def test_estimate_tiled_matches_xla(n, b, q):
-    """Transposed-tile estimate kernel vs the XLA oracle (padding rows
-    and phantom pad blocks must not leak into real outputs)."""
-    from tinyknn_tpu.ops.kernels import estimate_scan_tiled, tile_codes
-    from tinyknn_tpu.ops.packing import pack_codes
-    codes = np.random.randint(0, 16, size=(n, b), dtype=np.uint8)
-    tables = np.random.randint(-128, 128, size=(q, b, 16)).astype(np.int8)
-    tiled = tile_codes(np.asarray(pack_codes(codes)))
-    a = np.asarray(estimate_scan_tiled(tiled, tables, interpret=True))
-    x = np.asarray(estimate_scan_xla(codes, tables))
-    np.testing.assert_array_equal(a[:, :n], x)
-
-
-def _fold_oracle(tables_perm, codes, flat_ids, tile_offsets, counts,
-                 W, max_tiles, B_enc=None):
-    """Exact NumPy model of scan_fold_csr's int8 path: per (cluster,
-    query slot, position class) the encoded minimum
-    ``((est + 128B) << col_bits) | position`` over list positions
-    congruent to the class (class = (p // 128 % W) * 128 + p % 128),
-    or 2^31-1 where the class is empty."""
-    C, qc, M = tables_perm.shape
-    B = M // 16
-    col_bits = max(1, (max_tiles * 128 - 1).bit_length())
-    # the kernel's bias uses the PADDED storage block count (phantom
-    # zero blocks from Bs-padding shift every estimate equally)
-    bias = 128 * (B_enc if B_enc is not None else B)
+def _fold_min(enc_vals, L, W):
+    """Per position class j: min of enc_vals[p] over p < L with
+    (p // 128) % W * 128 + p % 128 == j (int64; ENC_INVALID if none)."""
     S = W * 128
-    enc = np.full((C, qc, S), 2**31 - 1, np.int64)
-    for c in range(C):
-        L = int(counts[c])
-        ids = flat_ids[tile_offsets[c] * 128:tile_offsets[c] * 128 + L]
-        t = tables_perm[c].reshape(qc, 16, B)    # tiled layout row v*B+b
-        for q in range(qc):
-            est = np.array([sum(int(t[q, codes[i, b], b])
-                                for b in range(B)) for i in ids])
-            for p in range(L):
-                j = (p // 128 % W) * 128 + p % 128
-                e = ((int(est[p]) + bias) << col_bits) | p
-                enc[c, q, j] = min(enc[c, q, j], e)
-    return enc.astype(np.int32)
+    out = np.full(enc_vals.shape[:-1] + (S,), ENC_INVALID, np.int64)
+    for p in range(L):
+        j = (p // 128 % W) * 128 + p % 128
+        out[..., j] = np.minimum(out[..., j], enc_vals[..., p])
+    return out
 
 
-@pytest.mark.parametrize("W, tps", [(1, 1), (2, 1), (2, 2)])
-def test_scan_fold_csr_matches_oracle(W, tps):
-    """The production IVF scan kernel vs an independent NumPy oracle
-    (reference test family 1, tests/test_pq.py:12-53): the emitted fold
-    buffer must hold exactly the per-class encoded minima."""
-    from tinyknn_tpu.ops.kernels import (
-        pack_codes_tiled, permute_tables_csr, permute_tables_tiled,
-        scan_fold_csr)
-    from tinyknn_tpu.ops.packing import pack_codes
-    from tinyknn_tpu.utils.grouping import (
-        csr_scan_map, invert_assignments_csr_tiled)
-    rng = np.random.default_rng(3)
-    n, B, C, qc = 500, 8, 4, 8
-    # skewed assignment incl. an empty list and a >128-long list
-    assign = rng.choice(C, size=(n, 1), p=[0.7, 0.25, 0.05, 0.0])
+def _pq_case(seed, B, qc, lengths):
+    rng = np.random.default_rng(seed)
+    n = sum(lengths)
+    C = len(lengths)
+    assign = _assign(lengths, rng)
     codes = rng.integers(0, 16, size=(n, B), dtype=np.uint8)
-    tables = rng.integers(-128, 128, size=(C, qc, B * 16)).astype(np.int8)
-
-    flat_ids, toff, counts = invert_assignments_csr_tiled(
-        assign, C, align_tiles=tps)
-    codes_tiled = np.asarray(
-        pack_codes_tiled(np.asarray(pack_codes(codes)), flat_ids))
-    # B=8 -> Bs=4 pads to 8 in storage; tables get zero phantom rows
-    t_k = np.asarray(permute_tables_csr(tables, B))
+    flat_ids, toff, counts = invert_assignments_csr_tiled(assign, C)
+    tiles = pack_codes_tiled(pack_codes(codes), jnp.asarray(flat_ids))
     max_tiles = max(1, int(-(-counts.max() // 128)))
-    smap = csr_scan_map(toff, counts, codes_tiled.shape[0],
-                        tiles_per_step=tps)
-    enc = np.asarray(scan_fold_csr(
-        t_k, codes_tiled, *smap, counts, fold_tiles=W,
-        max_tiles=max_tiles, tiles_per_step=tps, interpret=True))
-    want = _fold_oracle(np.asarray(permute_tables_tiled(tables, B)),
-                        codes, flat_ids, toff, counts, W, max_tiles,
-                        B_enc=t_k.shape[2] // 16)
-    np.testing.assert_array_equal(enc, want)
+    return codes, flat_ids, toff, counts, tiles, max_tiles
+
+
+def _pq_estimates(tables, codes, flat_ids, toff, L):
+    """est[s, p] = sum_b tables[s, b, code of list point p in block b]."""
+    ids = flat_ids[toff * 128:toff * 128 + L]
+    B = codes.shape[1]
+    return np.stack([
+        np.array([sum(int(t[b, codes[i, b]]) for b in range(B))
+                  for i in ids], np.int64).reshape(L)
+        for t in tables])                              # (qc, L)
+
+
+@pytest.mark.parametrize("W, B, qc", [(1, 8, 16), (2, 8, 8), (3, 64, 32),
+                                      (1, 112, 16)])
+def test_csr_fold_scan_int8_matches_oracle(W, B, qc, interpret):
+    """int8 tables: the fold holds exactly the per-class minimum of
+    ``(est + bias) << col_bits | position``."""
+    codes, flat_ids, toff, counts, tiles, max_tiles = _pq_case(
+        3, B, qc, LENGTHS)
+    rng = np.random.default_rng(4)
+    C = len(LENGTHS)
+    tables = rng.integers(-128, 128, size=(C, qc, B, 16)).astype(np.int8)
+    q_sel = kernel_tables(jnp.asarray(tables.reshape(C, qc, 16 * B)), B)
+    enc = np.asarray(csr_fold_scan(
+        q_sel, tiles, jnp.asarray(toff), jnp.asarray(counts),
+        fold_tiles=W, max_tiles=max_tiles, interpret=interpret))
+    assert enc.shape == (C, qc, W * 128)
+    R = code_rows(B)
+    col_bits = max(1, (max_tiles * 128 - 1).bit_length())
+    for c, L in enumerate(LENGTHS):
+        est = _pq_estimates(tables[c], codes, flat_ids, int(toff[c]), L)
+        vals = ((est + 128 * 2 * R) << col_bits) | np.arange(L)
+        np.testing.assert_array_equal(enc[c], _fold_min(vals, L, W))
+
+
+def test_csr_fold_scan_float_tables_exact(interpret):
+    """bf16 tables: with integer tables whose sums are exact in bf16,
+    values and positions decode to the int8 path's bit for bit."""
+    _, _, toff, counts, tiles, max_tiles = _pq_case(9, 8, 16, LENGTHS)
+    rng = np.random.default_rng(9)
+    C, qc, B = len(LENGTHS), 16, 8
+    # sums <= 8 * 31 = 248 < 256: exactly representable in bf16
+    tables = rng.integers(0, 32, size=(C, qc, 16 * B)).astype(np.int8)
+    args = (tiles, jnp.asarray(toff), jnp.asarray(counts))
+    kw = dict(fold_tiles=2, max_tiles=max_tiles, interpret=interpret)
+    enc_i8 = np.asarray(csr_fold_scan(
+        kernel_tables(jnp.asarray(tables), B), *args, **kw))
+    enc_bf = np.asarray(csr_fold_scan(
+        kernel_tables(jnp.asarray(tables, jnp.bfloat16), B), *args, **kw))
+    bits = max(1, (max_tiles * 128 - 1).bit_length())
+    ok = enc_i8 < ENC_INVALID
+    np.testing.assert_array_equal(ok, enc_bf < ENC_INVALID)
+    vi = (enc_i8 >> bits) - 128 * 2 * code_rows(B)
+    pi = enc_i8 & ((1 << bits) - 1)
+    vb = ((enc_bf >> 16).astype(np.uint32) << 16).view(np.float32)
+    np.testing.assert_array_equal(pi[ok], (enc_bf & 0xFFFF)[ok])
+    np.testing.assert_array_equal(vi[ok], vb[ok].astype(np.int64))
+
+
+@pytest.mark.parametrize("d, W", [(12, 2), (100, 1), (29, 3)])
+def test_csr_fold_scan_exact_matches_oracle(d, W, interpret):
+    """Exact tiles: each slot holds the bf16-rounded true squared
+    distance of the best point in its position class."""
+    from tinyknn_tpu.models.ivf import _augment_data_csr, _augment_queries
+    rng = np.random.default_rng(5)
+    n, C, qc = sum(LENGTHS), len(LENGTHS), 16
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    qs = rng.standard_normal((qc, d)).astype(np.float32)
+    flat_ids, toff, counts = invert_assignments_csr_tiled(
+        _assign(LENGTHS, rng), C)
+    max_tiles = max(1, int(-(-counts.max() // 128)))
+    vecs = _augment_data_csr(jnp.asarray(X), jnp.asarray(flat_ids))
+    q_aug = _augment_queries(jnp.asarray(qs))
+    enc = np.asarray(csr_fold_scan(
+        jnp.broadcast_to(q_aug[None], (C,) + q_aug.shape), vecs,
+        jnp.asarray(toff), jnp.asarray(counts), fold_tiles=W,
+        max_tiles=max_tiles, interpret=interpret))
+    S = W * 128
+    for c, L in enumerate(LENGTHS):
+        rows = flat_ids[int(toff[c]) * 128:int(toff[c]) * 128 + L]
+        if L == 0:
+            assert (enc[c] == ENC_INVALID).all()
+            continue
+        d2 = ((qs[:, None, :] - X[rows][None]) ** 2).sum(-1)  # (qc, L)
+        cls = (np.arange(L) // 128 % W) * 128 + np.arange(L) % 128
+        for j in range(S):
+            members = np.flatnonzero(cls == j)
+            e = enc[c, :, j]
+            if members.size == 0:
+                assert (e == ENC_INVALID).all()
+                continue
+            pos = e & 0xFFFF
+            val = ((e >> 16).astype(np.uint32) << 16).view(np.float32)
+            assert np.isin(pos, members).all()
+            want = d2[:, members].min(axis=1)
+            # bf16 inputs and output: ~2^-8 relative per rounding
+            np.testing.assert_allclose(val, want, rtol=0.02, atol=0.02)
+            got = d2[np.arange(qc), pos]
+            assert (got <= want * 1.02 + 1e-3).all()
+
+
+def test_kernel_tables_layout():
+    """kernel_tables puts block 2s + p, center v at [p, v, s] and zeros
+    the phantom blocks."""
+    B = 10
+    t = np.arange(3 * B * 16, dtype=np.int32).reshape(3, B * 16)
+    k = np.asarray(kernel_tables(jnp.asarray(t), B))
+    R = code_rows(B)
+    assert k.shape == (3, 32 * R)
+    k = k.reshape(3, 2, 16, R)
+    for s in range(R):
+        for p in range(2):
+            b = 2 * s + p
+            want = t[:, b * 16:(b + 1) * 16] if b < B else 0
+            np.testing.assert_array_equal(k[:, p, :, s], want)
 
 
 def test_csr_tiled_builder():
-    from tinyknn_tpu.utils.grouping import (
-        invert_assignments_csr, invert_assignments_csr_tiled)
+    from tinyknn_tpu.utils.grouping import invert_assignments_csr
     rng = np.random.default_rng(0)
     assign = rng.integers(0, 7, size=(300, 2))
     flat, toff, counts = invert_assignments_csr_tiled(assign, 7)
@@ -141,108 +191,3 @@ def test_csr_tiled_builder():
         pad = flat[toff[c] * 128 + counts[c]:
                    (toff[c] + -(-counts[c] // 128)) * 128]
         assert np.all(pad == -1)
-
-
-def test_scan_fold_csr_float_tables_exact():
-    """Float-tables fold encoding: with integer-valued tables whose
-    per-list sums are exactly representable in bf16, the candidate set
-    must match the int8 path bit-for-bit."""
-    from tinyknn_tpu.ops.kernels import (
-        pack_codes_tiled, permute_tables_csr, scan_fold_csr)
-    from tinyknn_tpu.ops.packing import pack_codes
-    from tinyknn_tpu.utils.grouping import (
-        csr_scan_map, invert_assignments_csr_tiled)
-    rng = np.random.default_rng(9)
-    n, B, C, qc = 300, 8, 3, 8
-    assign = rng.integers(0, C, size=(n, 1))
-    codes = rng.integers(0, 16, size=(n, B), dtype=np.uint8)
-    # small non-negative integer tables: sums <= 8 * 31 = 248 < 256,
-    # exactly representable in bf16 (8-bit mantissa)
-    tables = rng.integers(0, 32, size=(C, qc, B * 16)).astype(np.int8)
-    flat_ids, toff, counts = invert_assignments_csr_tiled(assign, C)
-    codes_tiled = np.asarray(
-        pack_codes_tiled(np.asarray(pack_codes(codes)), flat_ids))
-    smap = csr_scan_map(toff, counts, codes_tiled.shape[0])
-    max_tiles = max(1, int(-(-counts.max() // 128)))
-
-    t_i8 = np.asarray(permute_tables_csr(tables, B))
-    t_bf = np.asarray(permute_tables_csr(
-        tables.astype(np.float32), B)).astype(np.float32)
-    import jax.numpy as jnp
-    enc_i8 = np.asarray(scan_fold_csr(
-        t_i8, codes_tiled, *smap, counts, fold_tiles=2,
-        max_tiles=max_tiles, interpret=True))
-    enc_bf = np.asarray(scan_fold_csr(
-        jnp.asarray(t_bf, jnp.bfloat16), codes_tiled, *smap, counts,
-        fold_tiles=2, max_tiles=max_tiles, interpret=True))
-    # decode both encodings to (value, position) and compare
-    bits_i8 = max(1, (max_tiles * 128 - 1).bit_length())
-    vi = np.where(enc_i8 < 2**31 - 1,
-                  (enc_i8 >> bits_i8) - 128 * (t_i8.shape[2] // 16), -1)
-    pi = np.where(enc_i8 < 2**31 - 1, enc_i8 & ((1 << bits_i8) - 1), -1)
-    vb_bits = (enc_bf >> 16).astype(np.uint16)
-    vb_f = (vb_bits.astype(np.uint32) << 16).view(np.float32)
-    vb = np.where(enc_bf < 2**31 - 1, vb_f.astype(np.int64), -1)
-    pb = np.where(enc_bf < 2**31 - 1, enc_bf & 0xFFFF, -1)
-    np.testing.assert_array_equal(pi, pb)
-    np.testing.assert_array_equal(vi, vb)
-
-
-def test_scan_exact_csr_matches_oracle():
-    """The exact-distance kernel's fold must hold, per (cluster, slot,
-    position-class), the bf16-rounded true squared distance of the
-    best point in that class — checked against a NumPy oracle."""
-    import jax.numpy as jnp
-    from tinyknn_tpu.models.ivf import (
-        _augment_data_csr, _augment_queries)
-    from tinyknn_tpu.ops.kernels import scan_exact_csr
-    from tinyknn_tpu.utils.grouping import (
-        csr_scan_map, invert_assignments_csr_tiled)
-
-    rng = np.random.default_rng(5)
-    n, d, C, qc, W = 700, 12, 5, 8, 2
-    X = rng.standard_normal((n, d)).astype(np.float32)
-    qs = rng.standard_normal((qc, d)).astype(np.float32)
-    assign = rng.integers(0, C, (n, 1)).astype(np.int32)
-    flat_ids, toff, counts = invert_assignments_csr_tiled(
-        assign, C, tile=128)
-    smap = csr_scan_map(toff, counts, max(1, len(flat_ids) // 128))
-    max_tiles = max(1, int(-(-counts.max() // 128)))
-
-    vecs = np.asarray(_augment_data_csr(jnp.asarray(X),
-                                        jnp.asarray(flat_ids)))
-    q_aug = np.asarray(_augment_queries(jnp.asarray(qs)))
-    qsel = np.broadcast_to(q_aug[None], (C,) + q_aug.shape)
-    enc = np.asarray(scan_exact_csr(
-        jnp.asarray(qsel), jnp.asarray(vecs),
-        *[jnp.asarray(m) for m in smap],
-        jnp.asarray(counts.astype(np.int32)),
-        fold_tiles=W, max_tiles=max_tiles, interpret=True))
-
-    S = W * 128
-    # oracle: true squared distances, folded per position class
-    for c in range(C):
-        L = int(counts[c])
-        rows = flat_ids[int(toff[c]) * 128:int(toff[c]) * 128 + L]
-        if L == 0:
-            assert (enc[c] == 2**31 - 1).all()
-            continue
-        pts = X[rows]                                  # (L, d)
-        d2 = ((qs[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
-        for s in range(qc):
-            for j in range(S):
-                members = np.arange(L)[np.arange(L) % S == j]
-                e = enc[c, s, j]
-                if members.size == 0:
-                    assert e == 2**31 - 1
-                    continue
-                pos = e & 0xFFFF
-                val = ((np.uint32(e >> 16) << np.uint32(16))
-                       .view(np.float32))
-                assert pos in members
-                want = d2[s, members].min()
-                # kernel value is bf16(d2 computed from bf16 inputs)
-                assert abs(val - want) <= 0.02 * max(want, 1.0), (
-                    c, s, j, val, want)
-                # and the winning position's distance is the minimum
-                assert d2[s, pos] <= want * 1.02 + 1e-3

@@ -1,6 +1,6 @@
 """Code-layout round-trip tests (reference family: tests/test_transform.py).
 
-The reference pins its Quick-ADC nibble interleave; the TPU format is a
+The reference pins its Quick-ADC nibble interleave; the format here is a
 plain 2-codes-per-byte pack, so the contract is the round-trip plus
 direct nibble-position assertions.
 """

@@ -182,36 +182,3 @@ def test_bf16_tables_rank_at_least_as_good():
         assert recall > 0.8, (td, recall)
     assert mean_ranks["f32"] <= mean_ranks["int8"] + 0.5, mean_ranks
     assert mean_ranks["bf16"] <= mean_ranks["int8"] + 0.5, mean_ranks
-
-
-def test_search_fold_path_recall():
-    """The fused fold-select search (backend='pallas', method='approx')
-    must match the exact path's recall on the standard workload."""
-    np.random.seed(11)
-    X = np.random.randn(3000, 32).astype(np.float32)
-    qs = np.random.randn(50, 32).astype(np.float32)
-    tru = np.asarray(knn_brute(qs, X, k=1))[:, 0]
-    pq = FastPQ(2, rotate_dim=None, backend="pallas")
-    data = pq.fit_transform(X)
-    top = np.asarray(pq.search(qs, data, X, k=10, method="approx"))
-    rec = np.mean([t in row for t, row in zip(tru, top)])
-    pq2 = FastPQ(2, rotate_dim=None, backend="xla")
-    data2 = pq2.fit_transform(X)
-    top2 = np.asarray(pq2.search(qs, data2, X, k=10, method="exact"))
-    rec2 = np.mean([t in row for t, row in zip(tru, top2)])
-    assert rec >= rec2 - 0.06, (rec, rec2)
-    assert rec >= 0.8
-
-
-def test_search_fold_path_tiny_corpus():
-    """Fold search on a sub-tile corpus (n < 128: one partial tile)."""
-    np.random.seed(12)
-    X = np.random.randn(40, 16).astype(np.float32)
-    qs = np.random.randn(4, 16).astype(np.float32)
-    pq = FastPQ(2, rotate_dim=None, backend="pallas")
-    data = pq.fit_transform(X)
-    top = np.asarray(pq.search(qs, data, X, k=5, method="approx",
-                               rescore=32))
-    tru = np.asarray(knn_brute(qs, X, k=1))[:, 0]
-    assert np.all(top < 40)
-    assert np.mean([t in row for t, row in zip(tru, top)]) >= 0.7

@@ -1,6 +1,6 @@
 """Scan-kernel-vs-oracle equivalence (reference family 1, tests/test_pq.py:12-53).
 
-The 'kernel' here is the XLA/Pallas one-hot matmul; the oracle is a slow
+The scan here is XLA's one-hot matrix product; the oracle is a slow
 NumPy loop with plain int32 accumulation. The reference's saturating
 int8 semantics (SSE sequential / AVX two-lane) are preserved in a
 dedicated emulation op and tested against the reference's own oracle
@@ -12,7 +12,7 @@ import pytest
 from itertools import product
 
 from tinyknn_tpu.ops import estimate_scan, estimate_scan_saturating
-from tinyknn_tpu.ops.scan import estimate_scan_xla
+from tinyknn_tpu.ops.packing import pack_codes
 
 np.random.seed(10)
 
@@ -67,8 +67,48 @@ def test_estimate_vs_oracle(n, b, q):
 def test_xla_backend_explicit():
     codes = np.random.randint(0, 16, size=(24, 8), dtype=np.uint8)
     tables = np.random.randint(-128, 128, size=(2, 8, 16)).astype(np.int8)
-    est = np.asarray(estimate_scan_xla(codes, tables))
+    est = np.asarray(estimate_scan(codes, tables))
     np.testing.assert_array_equal(est, numpy_oracle(codes, tables))
+
+
+@pytest.mark.parametrize("n, b, q", product([16, 100, 300], [8, 56], [1, 5]))
+def test_estimate_shapes_vs_oracle(n, b, q):
+    """Row counts off the 8/128 grid and block counts off 16 must not
+    change a single estimate."""
+    codes = np.random.randint(0, 16, size=(n, b), dtype=np.uint8)
+    tables = np.random.randint(-128, 128, size=(q, b, 16)).astype(np.int8)
+    est = np.asarray(estimate_scan(codes, tables))
+    assert est.shape == (q, n) and est.dtype == np.int32
+    np.testing.assert_array_equal(est, numpy_oracle(codes, tables))
+
+
+@pytest.mark.parametrize("n, b, q", product([16, 100], [8, 56], [1, 5]))
+def test_estimate_packed_vs_oracle(n, b, q):
+    """The fused 4-bit unpack (low nibble = even block) must agree with
+    the oracle on the unpacked codes."""
+    codes = np.random.randint(0, 16, size=(n, b), dtype=np.uint8)
+    tables = np.random.randint(-128, 128, size=(q, b, 16)).astype(np.int8)
+    est = np.asarray(estimate_scan(pack_codes(codes), tables, packed=True))
+    np.testing.assert_array_equal(est, numpy_oracle(codes, tables))
+
+
+@pytest.mark.parametrize("n, b, q", product([16, 200], [8, 56], [1, 9]))
+def test_estimate_float_tables_vs_oracle(n, b, q):
+    """Float tables take the bf16 one-hot into f32: integer tables with
+    bf16-exact entries reproduce the int32 oracle exactly."""
+    codes = np.random.randint(0, 16, size=(n, b), dtype=np.uint8)
+    tables = np.random.randint(-128, 128, size=(q, b, 16)).astype(np.int8)
+    est = np.asarray(estimate_scan(codes, tables.astype(np.float32)))
+    assert est.dtype == np.float32
+    np.testing.assert_array_equal(est, numpy_oracle(codes, tables))
+
+
+def test_estimate_packed_matches_unpacked():
+    codes = np.random.randint(0, 16, size=(40, 8), dtype=np.uint8)
+    tables = np.random.randint(-128, 128, size=(2, 8, 16)).astype(np.int8)
+    a = np.asarray(estimate_scan(pack_codes(codes), tables, packed=True))
+    np.testing.assert_array_equal(a, np.asarray(estimate_scan(codes,
+                                                              tables)))
 
 
 @pytest.mark.parametrize(

@@ -1,9 +1,9 @@
-"""tinyknn_tpu — a TPU-native approximate nearest-neighbor framework.
+"""tinyknn_tpu — an accelerator-native approximate nearest-neighbor framework.
 
 Same capabilities as thomasahle/tinyknn (4-bit product quantization +
-inverted-file search with exact rescore), re-designed for TPU:
-JAX/XLA/Pallas compute, batched queries, MXU int8 scans, mesh-sharded
-indexes. See tinyknn_tpu/models for the index classes, tinyknn_tpu/ops
+inverted-file search with exact rescore), re-designed for the GPU:
+JAX/XLA compute with one Pallas (Triton) list-scan kernel, batched
+queries, int8 matrix-product scans, mesh-sharded indexes. See tinyknn_tpu/models for the index classes, tinyknn_tpu/ops
 for the kernels, tinyknn_tpu/parallel for multi-chip sharding.
 """
 

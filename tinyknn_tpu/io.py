@@ -34,7 +34,6 @@ def _pq_state(pq: FastPQ) -> dict:
             "use_kmeans": pq.use_kmeans,
             "rotate_dim": pq.rotate_dim,
             "seed": pq.seed,
-            "backend": pq.backend,
             "kmeans_iters": pq.kmeans_iters,
             "kmeans_n_init": pq.kmeans_n_init,
             "table_dtype": pq.table_dtype,
@@ -50,7 +49,6 @@ def _pq_restore(data) -> FastPQ:
     pq = FastPQ(dims_per_block=meta["dims_per_block"],
                 use_kmeans=meta["use_kmeans"],
                 rotate_dim=meta["rotate_dim"], seed=meta["seed"],
-                backend=meta["backend"],
                 kmeans_iters=meta.get("kmeans_iters", 25),
                 kmeans_n_init=meta.get("kmeans_n_init", 2),
                 table_dtype=meta.get("table_dtype", "int8"))
@@ -231,9 +229,6 @@ def load_ivf(path, skip_derived: bool = False) -> IVF:
         ivf.list_counts = jnp.asarray(list_counts)
         ivf.max_tiles = max(
             1, int(-(-int(list_counts.max(initial=0)) // 128)))
-        from .utils.grouping import csr_scan_map
-        ivf.scan_map = tuple(jnp.asarray(a) for a in csr_scan_map(
-            tile_offsets, list_counts, csr_codes.shape[0]))
         ivf.data = jnp.asarray(data["data"])
         if ivf.build_probes is None:
             # pre-v3 archives carry no build_probes; an under-estimate

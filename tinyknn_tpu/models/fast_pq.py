@@ -1,14 +1,14 @@
-"""FastPQ: 4-bit product quantizer, batched and TPU-native.
+"""FastPQ: 4-bit product quantizer, batched for an accelerator.
 
 Same capability as the reference FastPQ (reference: tinyknn/fast_pq.py):
 fit 16-center codebooks per block of ``dims_per_block`` dims, encode data
 to 4-bit codes, build per-query int8 distance tables, estimate distances
 with a table-sum scan, and run the two-pass (estimate -> exact rescore)
-top-k. Differences are all TPU-first by design:
+top-k. Differences are all accelerator-first by design:
 
-  * codes live as plain ``uint8[n_pad, n_blocks]`` tiles (optionally
-    nibble-packed for HBM) — not the Quick-ADC pshufb layout;
-  * the scan is an int8 one-hot matmul on the MXU accumulated in int32
+  * codes live as plain ``uint8[n_pad, n_blocks]`` tiles (nibble-packed
+    in device memory) — not the Quick-ADC pshufb layout;
+  * the scan is an int8 one-hot matrix product accumulated in int32
     (no saturating-int8 semantics; see ops/scan.py);
   * every entry point is batched over queries and jit-compiled — the
     reference's per-query Python loops become a leading batch axis;
@@ -38,8 +38,8 @@ from ..ops.packing import pack_codes
 from ..ops.scan import estimate_scan
 from ..utils.padding import pad2, round_up
 
-ROW_PAD = 8       # row alignment of the code matrix (f32/int sublane tile)
-BLOCK_PAD = 8     # block-count alignment => one-hot width is a lane multiple
+ROW_PAD = 8       # row alignment of the code matrix
+BLOCK_PAD = 8     # block-count alignment => one-hot width is a multiple of 128
 
 
 class TransformedData(NamedTuple):
@@ -49,8 +49,8 @@ class TransformedData(NamedTuple):
     (tinyknn/fast_pq.py:30). ``packed`` is uint8[n_pad, n_blocks // 2]
     — two 4-bit codes per byte, the same 4 bits/block storage cost as
     the reference's Quick-ADC layout (tinyknn/_transform.py:4-77) —
-    zero-padded rows beyond ``size``. Scans unpack on-chip (in-kernel
-    for Pallas, fused for XLA); ``codes`` materializes the unpacked
+    zero-padded rows beyond ``size``. Scans unpack fused into the
+    one-hot expansion; ``codes`` materializes the unpacked
     uint8[n_pad, n_blocks] view for inspection/tests.
     """
     size: int
@@ -67,19 +67,18 @@ class FastPQ:
     """4-bit product quantizer (reference: tinyknn/fast_pq.py:33-252)."""
 
     def __init__(self, dims_per_block=2, use_kmeans=True, rotate_dim=64,
-                 seed=0, backend="auto", kmeans_iters=25, kmeans_n_init=2,
+                 seed=0, kmeans_iters=25, kmeans_n_init=2,
                  table_dtype="int8"):
         assert table_dtype in ("int8", "bf16", "f32")
         self.dims_per_block = dims_per_block
         self.use_kmeans = use_kmeans
         self.rotate_dim = rotate_dim
         self.seed = seed
-        self.backend = backend
         self.kmeans_iters = kmeans_iters
         self.kmeans_n_init = kmeans_n_init
-        # "int8": the reference's quantized tables (equal memory, MXU
-        # int8 path). "bf16"/"f32": unquantized — same measured speed on
-        # the MXU, slightly better tail ranks (no rounding error).
+        # "int8": the reference's quantized tables (equal memory, int8
+        # matrix products). "bf16"/"f32": unquantized — slightly better
+        # tail ranks (no rounding error).
         self.table_dtype = table_dtype
         self.centers = None        # (16, d) f32, reference layout
         self.center_blocks = None  # (B, 16, dpb) f32
@@ -140,7 +139,7 @@ class FastPQ:
         """Encode rows to 4-bit codes (reference: tinyknn/fast_pq.py:147-184).
 
         Accepts NumPy or JAX arrays; a JAX input stays on device
-        (no host readback — device->host is the slow direction).
+        (no host readback).
         """
         assert self.centers is not None, "PQ has not been fitted"
         if not isinstance(data, jnp.ndarray):
@@ -203,7 +202,7 @@ class FastPQ:
         idx = _fused_search(jnp.asarray(qn), codes, data,
                             self.center_blocks, self.R,
                             self.dims_per_block, signed, true_n, k,
-                            rescore, self.backend, _resolve_method(method),
+                            rescore, _resolve_method(method),
                             self.table_dtype)
         return idx[0] if single else idx
 
@@ -300,8 +299,7 @@ class _FastDistanceTable:
         """
         del out  # API parity only
         true_n, codes = transformed_data
-        est = estimate_scan(codes, self.qt.tables, self.pq.backend,
-                            packed=True)
+        est = estimate_scan(codes, self.qt.tables, packed=True)
         est = est[:, :true_n]
         if rescale:
             est = dequantize_estimates(est, self.qt)
@@ -313,8 +311,8 @@ class _FastDistanceTable:
         Reference: tinyknn/fast_pq.py:284-312. Returns (Q, k) indices,
         or (k,) for a single query. ``method`` selects the pass-1
         candidate collector: 'exact' (lax.top_k) or 'approx'
-        (lax.approx_max_k, the TPU-native top-k — ~5x faster on large
-        scans); 'auto' picks approx on TPU.
+        (lax.approx_max_k, which has no approximate lowering on the GPU
+        or the CPU and selects exactly there); 'auto' is 'exact'.
         """
         true_n, codes = transformed_data
         data = jnp.asarray(data, jnp.float32)
@@ -324,60 +322,40 @@ class _FastDistanceTable:
             rescore = min(2 * k + 10, true_n)
         assert true_n >= rescore >= k
         idx = _two_pass_top(codes, self.qt.tables, self.raw_q, data,
-                            true_n, k, rescore, self.pq.backend,
-                            _resolve_method(method))
+                            true_n, k, rescore, _resolve_method(method))
         return idx[0] if self.single else idx
 
 
 def _resolve_method(method: str) -> str:
+    """'auto' -> 'exact': on the GPU and the CPU approx_max_k has no
+    approximate lowering and selects exactly."""
     if method == "auto":
-        return "approx" if jax.default_backend() == "tpu" else "exact"
+        return "exact"
     assert method in ("exact", "approx")
     return method
 
 
 def pass1_topk(neg_vals, k: int, method: str):
-    """Pass-1 candidate collection: exact or TPU-approximate top-k."""
+    """Pass-1 candidate collection: lax.top_k or lax.approx_max_k."""
     if method == "approx":
         return jax.lax.approx_max_k(neg_vals.astype(jnp.float32), k)
     return jax.lax.top_k(neg_vals, k)
 
 
 @partial(jax.jit, static_argnames=("dpb", "signed", "true_n", "k",
-                                   "rescore", "backend", "method",
-                                   "table_dtype"))
+                                   "rescore", "method", "table_dtype"))
 def _fused_search(q, codes, data, center_blocks, R, dpb: int, signed: bool,
-                  true_n: int, k: int, rescore: int, backend: str,
-                  method: str, table_dtype: str = "int8"):
+                  true_n: int, k: int, rescore: int, method: str,
+                  table_dtype: str = "int8"):
     qt = _build_tables(q, center_blocks, R, dpb, signed, table_dtype)
     return _two_pass_top(codes, qt.tables, q, data, true_n, k, rescore,
-                         backend, method)
+                         method)
 
 
-@partial(jax.jit, static_argnames=("true_n", "k", "rescore", "backend",
-                                   "method"))
+@partial(jax.jit, static_argnames=("true_n", "k", "rescore", "method"))
 def _two_pass_top(codes, tables, raw_q, data, true_n: int, k: int,
-                  rescore: int, backend: str, method: str):
-    from ..ops.scan import _default_backend
-    backend_eff = _default_backend() if backend in (None, "auto") \
-        else backend
-    if (backend_eff == "pallas" and method == "approx"
-            and tables.dtype == jnp.int8 and rescore > k):
-        # Fused scan+fold+select: the (Q, n) estimate matrix never
-        # reaches HBM; candidates are encoded fold-class minima (the
-        # approx_max_k relaxation) decoded straight to row indices.
-        from ..ops.kernels import fold_topk_tiled, tile_codes
-        cand, valid = fold_topk_tiled(
-            tile_codes(codes), tables, true_n, rescore,
-            interpret=jax.default_backend() != "tpu")
-        gathered = data[cand]                        # (Q, rescore, d)
-        diff = gathered - raw_q[:, None, :]
-        d2 = jnp.einsum("qrd,qrd->qr", diff, diff,
-                     precision=jax.lax.Precision.HIGHEST)
-        d2 = jnp.where(valid, d2, jnp.inf)
-        _, best = jax.lax.top_k(-d2, k)
-        return jnp.take_along_axis(cand, best, axis=1)
-    est = estimate_scan(codes, tables, backend, packed=True)  # (Q, n_pad)
+                  rescore: int, method: str):
+    est = estimate_scan(codes, tables, packed=True)  # (Q, n_pad)
     n_pad = codes.shape[0]
     if n_pad > true_n:
         mask = jnp.arange(n_pad) < true_n

@@ -1,8 +1,8 @@
 """Flat (exact brute-force) index.
 
 The reference exposes brute-force search only as utility functions
-(knn_brute / knn_brute1); on TPU exact search over a few million vectors
-is a single MXU matmul + top_k and deserves an index-shaped API of its
+(knn_brute / knn_brute1); on an accelerator exact search over a few
+million vectors is a single matrix product + top_k and deserves an index-shaped API of its
 own — it is both the ground-truth generator for benchmarks and a
 perfectly usable index at small scale.
 """

@@ -114,7 +114,7 @@ def invert_assignments_native(assignments, n_lists: int, pad_to: int = 8):
 def invert_assignments_csr_tiled_native(assignments, n_lists: int,
                                         tile: int = 128,
                                         align_tiles: int = 1):
-    """Native counting-sort build of the lane-tiled CSR inverted lists
+    """Native counting-sort build of the tiled CSR inverted lists
     (same contract as utils.grouping.invert_assignments_csr_tiled,
     bit-identical output), or None when the library is unavailable."""
     lib = get_lib()

@@ -7,12 +7,7 @@ from .quantization import (
     quantize_tables_signed,
     quantize_tables_unsigned,
 )
-from .scan import (
-    estimate_scan,
-    estimate_scan_saturating,
-    estimate_scan_xla,
-    register_pallas_impl,
-)
+from .scan import estimate_scan, estimate_scan_saturating
 from .topk import (
     dedup_candidates,
     masked_smallest_k,
@@ -26,8 +21,7 @@ __all__ = [
     "pack_codes", "unpack_codes",
     "QuantizedTables", "block_dists_blocked", "dequantize_estimates",
     "quantize_tables_signed", "quantize_tables_unsigned",
-    "estimate_scan", "estimate_scan_saturating", "estimate_scan_xla",
-    "register_pallas_impl",
+    "estimate_scan", "estimate_scan_saturating",
     "dedup_candidates", "masked_smallest_k", "merge_topk", "smallest_k",
     "streaming_topk_init",
 ]

@@ -1,30 +1,32 @@
-"""Pallas TPU kernels — the native-code layer.
+"""The CSR list-scan kernel: Pallas through Triton, for Hopper.
 
 The reference's native layer is two Cython/SIMD modules doing the
 Quick-ADC pshufb scan (reference: tinyknn/_fast_pq.pyx,
-_fast_pq_256.pyx). Pallas/Mosaic is the TPU's kernel language the way
-Cython+intrinsics is x86's; the scan becomes: expand 4-bit codes to an
-int8 one-hot tile *in VMEM* (never materialized in HBM) and contract it
-with the query tables on the MXU with int32 accumulation.
+_fast_pq_256.pyx). Here the IVF inner loop is one kernel,
+``csr_fold_scan``, that walks each inverted list's CSR tiles
+(``ops/packing.py``) and emits, per (list, query slot), an encoded
+min-fold of the scanned distances. It has two tile bodies:
 
-All production kernels share the transposed tile layout — codes as
-(B/2, 128) nibble-packed tiles, points on lanes — so the 16 one-hot
-compares run at full VPU lane width and the MXU contraction needs no
-in-kernel transposes:
+  * PQ codes: a ``(Bs, 128)`` tile of nibble-packed 4-bit codes is
+    expanded in registers to one-hot rows and contracted with the
+    query's distance tables (int8 -> int32, or bf16 -> f32 for float
+    tables). Nothing but the packed codes is read from device memory;
+    the XLA path writes a 16x larger one-hot and a full estimate matrix.
+  * exact: a ``(d_aug, 128)`` tile of bf16 vectors augmented with their
+    norms is contracted with the augmented queries, giving true squared
+    distances rounded to bf16 (``models/ivf.py`` ``_augment_data_csr``).
 
-  * estimate_scan_tiled: full-scan estimate, one grid step per tile
-    (the dispatcher's TPU default, ~40% over the XLA one-hot matmul);
-  * scan_fold_csr: the IVF inner loop over CSR ragged lists — scan +
-    encoded min-fold, emitting the fold buffer (no in-kernel top-r);
-  * scan_exact_csr: the same ragged walk over raw bf16 vector tiles,
-    computing true squared distances on the MXU (scan_impl='exact').
+Grid: (list, block of query slots). Each program loads its list's tile
+offset and length, loops over the list's tiles inside the kernel and
+min-folds them into the output rows it owns: fold segment ``w`` (128
+slots) takes the tiles ``w, w + W, w + 2W, ...``. The result is the
+``(C, qc, W * 128)`` int32 fold buffer; ``models/ivf.py``
+``_select_pool_enc`` selects on it and decodes only the survivors.
 
-(Earlier dense-grid and in-kernel top-r-extracting variants —
-scan_select_pallas / scan_select_csr — were superseded by the fold-emit
-kernels and removed in round 4; see git history.)
-
-On non-TPU backends kernels run in interpret mode (tests); the
-dispatcher in ops/scan.py picks the Pallas path on TPU.
+Encoding (monotone in the distance, position bits break ties):
+``(est + bias) << col_bits | position`` for int8 tables, and
+``bf16_bits(dist) << 16 | position`` for float tables and the exact
+body. ``ENC_INVALID`` marks an empty slot.
 """
 
 from __future__ import annotations
@@ -34,553 +36,196 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from ..utils.padding import round_up
+from .packing import LANE_TILE
 
-TILE_N = 256
-
-
-def _unpack_evens_odds(codes_i32):
-    """In-kernel 4-bit unpack: uint->int32 (rows, B/2) packed bytes ->
-    (rows, B) codes in *storage block order* [0, 2, ..., 1, 3, ...]
-    (even blocks from the low nibbles, then odd blocks from the high
-    nibbles). Column interleave would need an in-kernel 3-D reshape;
-    keeping evens-then-odds order and permuting the *tables* to match
-    outside (see _block_perm) costs nothing.
-    """
-    lo = jnp.bitwise_and(codes_i32, 15)
-    hi = jnp.bitwise_and(jax.lax.shift_right_logical(codes_i32, 4), 15)
-    return jnp.concatenate([lo, hi], axis=1)
+ENC_INVALID = 2**31 - 1  # empty-slot sentinel of the encoded fold domain
+CODE_ROWS = 32           # packed-code rows per contraction (int8 dot K)
 
 
-def _block_perm(B: int):
-    """storage_col -> logical block for the evens/odds unpack order."""
-    import numpy as np
-    return np.concatenate([np.arange(0, B, 2), np.arange(1, B, 2)])
+def code_rows(B: int) -> int:
+    """Packed-code rows the kernel reads per tile for B logical blocks:
+    the storage rows (B/2 padded to 8) rounded up to CODE_ROWS."""
+    return round_up(max(B // 2, 1), CODE_ROWS)
 
 
-def _onehot_tiled(codes_i32):
-    """(rows, B) int32 codes -> (rows, 16B) int8 one-hot, tiled layout
-    (column j <-> center j // B of block j % B).
-
-    Built as 16 compares against constants — materializing the tiled
-    codes (concat x16) and a column iota would write two (rows, 16B)
-    int32 intermediates (~8 MB each at production shapes); this form's
-    biggest intermediate is the int8 output itself. (Mosaic on v5e only
-    compares at 32 bit, hence int32 inputs.)
-    """
-    return jnp.concatenate(
-        [(codes_i32 == v).astype(jnp.int8) for v in range(16)], axis=1)
+def int8_col_bits(cap: int, B: int):
+    """Position bits of the int8 encoding for lists of up to ``cap``
+    points, or None when the value bits would overflow int32."""
+    col_bits = max(1, (cap - 1).bit_length())
+    if (255 * 2 * code_rows(B) + 1) << col_bits > ENC_INVALID:
+        return None
+    return col_bits
 
 
-def estimate_scan_pallas(codes, tables, packed: bool = False):
-    """Dispatcher-facing full-scan estimate: tile the packed codes on
-    the fly (one cheap reshape/transpose) and run the transposed-tile
-    kernel below — measured ~40% faster than the XLA one-hot matmul at
-    the margin on v5e (docs/PERFORMANCE.md). Interpret mode off-TPU.
-
-    codes: uint8[n, B] (or uint8[n, B/2] nibble-packed);
-    tables: int8[Q, B, 16] -> int32[Q, n].
-    """
-    from .packing import pack_codes
-    n = codes.shape[0]
-    if not packed and codes.shape[-1] % 2:
-        # odd block count can't nibble-pack; XLA path handles it
-        from .scan import estimate_scan_xla
-        return estimate_scan_xla(codes, tables)
-    if not packed:
-        codes = pack_codes(codes)
-    tiled = tile_codes(codes)
-    interpret = jax.default_backend() != "tpu"
-    out = estimate_scan_tiled(tiled, tables, interpret=interpret)
-    return out[:, :n]
+def kernel_tables(tables_flat, B: int):
+    """(..., 16B) block-major distance tables -> the kernel's layout
+    (..., 2 * 16 * R), R = code_rows(B): entry [p, v, s] is the table
+    value of center v in block 2s + p (the low nibble of packed byte s
+    holds block 2s, the high nibble block 2s + 1); phantom blocks are
+    zero."""
+    R = code_rows(B)
+    shape = tables_flat.shape[:-1]
+    t = tables_flat.reshape(shape + (B, 16))
+    t = jnp.pad(t, [(0, 0)] * len(shape) + [(0, 2 * R - B), (0, 0)])
+    t = t.reshape(shape + (R, 2, 16))
+    t = jnp.moveaxis(t, -3, -1)                       # (..., 2, 16, R)
+    return t.reshape(shape + (32 * R,))
 
 
-def register():
-    from .scan import register_pallas_impl
-    register_pallas_impl(estimate_scan_pallas)
+def _pow2_pieces(n: int):
+    """Split n (a multiple of 16) into power-of-two (offset, size)
+    pieces, largest first: Triton blocks are powers of two."""
+    pieces, off = [], 0
+    for bit in reversed(range(n.bit_length())):
+        size = 1 << bit
+        if n - off >= size:
+            pieces.append((off, size))
+            off += size
+    return tuple(pieces)
 
 
-register()
+def _fold_scan_kernel(toff_ref, counts_ref, q_ref, tiles_ref, out_ref, *,
+                      W: int, body: str, pieces, col_bits: int,
+                      bias: int):
+    c = pl.program_id(0)
+    toff = toff_ref[c]
+    count = counts_ref[c]
+    n_tiles = (count + LANE_TILE - 1) // LANE_TILE
+    qb = q_ref.shape[0]
+    lane = jax.lax.broadcasted_iota(jnp.int32, (qb, LANE_TILE), 1)
+    dims = (((1,), (0,)), ((), ()))
 
+    if body == "exact":
+        qs = [q_ref[:, pl.ds(off, size)] for off, size in pieces]
 
-_ENC_BIG = 2**31 - 1  # invalid-entry sentinel in the encoded domain
-
-
-# --------------------------------------------------------------------
-# Transposed-tile full-scan estimate kernel.
-#
-# The row-layout estimate kernel above loses to XLA's one-hot matmul
-# (B < 128 starves the compare lanes). This variant consumes the CSR
-# tile layout — codes as (n/128, Bs, 128) nibble-packed tiles, points
-# on lanes — so the 16 one-hot compares run at full lane width and the
-# MXU contraction needs no transposes: per tile,
-# out[:, t*128:(t+1)*128] = tables_tiled @ one_hot(codes_tile).
-# --------------------------------------------------------------------
-
-
-def _estimate_T_kernel(tsel_ref, codes_ref, out_ref, *, KT: int):
-    if KT == 1:
-        codes = codes_ref[0].astype(jnp.int32)        # (Bs, 128)
+        def estimate(t):
+            acc = jnp.zeros((qb, LANE_TILE), jnp.float32)
+            for (off, size), q in zip(pieces, qs):
+                vecs = tiles_ref[t, pl.ds(off, size), :]
+                acc += jax.lax.dot_general(
+                    q, vecs, dims, preferred_element_type=jnp.float32)
+            # bf16 input rounding can push a ~0 distance slightly
+            # negative; the IEEE-bit encoding needs >= 0
+            return jnp.maximum(acc, 0.0)
     else:
-        # KT tiles concatenated on lanes: one (B, KT*128) unpack +
-        # one-hot at full VPU width, ONE (q_pad, 16B) x (16B, KT*128)
-        # MXU contraction — N = KT*128 output tiles pipeline the MXU
-        # where N = 128 issued one tile per step (round-5 perf work).
-        codes = jnp.concatenate(
-            [codes_ref[i].astype(jnp.int32) for i in range(KT)], axis=1)
-    codes = _unpack_evens_odds_T(codes)               # (B, KT*128)
-    onehot = _onehot_tiled_T(codes)                   # (16B, KT*128)
-    out_ref[...] = jax.lax.dot_general(
-        tsel_ref[...], onehot, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32)             # (Q_pad, KT*128)
+        R = tiles_ref.shape[1]
+        floating = body == "pq_float"
+        acc_t = jnp.float32 if floating else jnp.int32
+        hot_t = jnp.bfloat16 if floating else jnp.int8
+        ts = [[q_ref[:, pl.ds((p * 16 + v) * R + off, CODE_ROWS)]
+               for p in range(2) for v in range(16)]
+              for off in range(0, R, CODE_ROWS)]
+
+        def estimate(t):
+            acc = jnp.zeros((qb, LANE_TILE), acc_t)
+            for piece, off in zip(ts, range(0, R, CODE_ROWS)):
+                codes = tiles_ref[t, pl.ds(off, CODE_ROWS), :].astype(
+                    jnp.int32)
+                nibbles = (jnp.bitwise_and(codes, 15),
+                           jax.lax.shift_right_logical(codes, 4))
+                for p in range(2):
+                    for v in range(16):
+                        hot = (nibbles[p] == v).astype(hot_t)
+                        acc += jax.lax.dot_general(
+                            piece[p * 16 + v], hot, dims,
+                            preferred_element_type=acc_t)
+            return acc
+
+    def encode(est):
+        if body == "pq_int8":
+            return jax.lax.shift_left(est + bias, col_bits)
+        bits = jax.lax.bitcast_convert_type(
+            est.astype(jnp.bfloat16).astype(jnp.float32), jnp.int32)
+        return jnp.bitwise_and(bits, jnp.int32(-65536))  # bf16 bits << 16
+
+    def segment(w, carry):
+        def tile(i, acc):
+            ti = w + i * W
+            pos = ti * LANE_TILE + lane
+            enc = jnp.bitwise_or(encode(estimate(toff + ti)), pos)
+            return jnp.minimum(acc, jnp.where(pos < count, enc,
+                                              ENC_INVALID))
+        acc = jax.lax.fori_loop(
+            0, (n_tiles - w + W - 1) // W, tile,
+            jnp.full((qb, LANE_TILE), ENC_INVALID, jnp.int32))
+        out_ref[:, pl.ds(pl.multiple_of(w * LANE_TILE, LANE_TILE),
+                         LANE_TILE)] = acc
+        return carry
+
+    jax.lax.fori_loop(0, W, segment, 0)
 
 
-@partial(jax.jit, static_argnames=("interpret", "kt"))
-def estimate_scan_tiled(codes_tiled, tables, interpret: bool = False,
-                        kt: int = 8):
-    """Full-scan ADC estimate over pre-tiled packed codes.
+@partial(jax.jit, static_argnames=("fold_tiles", "max_tiles", "interpret"))
+def csr_fold_scan(q_sel, tiles, tile_offsets, list_counts, *,
+                  fold_tiles: int, max_tiles: int,
+                  interpret: bool = False):
+    """Ragged scan of every list for its bucket of query slots.
 
-    codes_tiled: uint8[T, Bs_pad, 128] (tile_codes / pack_codes_tiled
-    layout); tables: int8[Q, B, 16]. Returns int32[Q, T * 128].
+    q_sel: per-list query slots — int8/bf16[C, qc, 32 * R]
+        (``kernel_tables`` layout) over PQ code tiles, or
+        bf16[C, qc, d_aug] augmented queries over exact vector tiles;
+    tiles: uint8[T, Bs_pad, 128] packed code tiles, or
+        bf16[T, d_aug, 128] augmented vector tiles;
+    tile_offsets / list_counts: int32[C] — list c owns
+        ``ceil(list_counts[c] / 128)`` tiles from ``tile_offsets[c]``.
 
-    ``kt``: code tiles per grid step (the MXU N dimension is kt*128).
+    Returns enc int32[C, qc, S], S = fold_tiles * 128: entry [c, s, j]
+    is the minimum encoding over the positions p of list c with
+    ``(p // 128) % fold_tiles * 128 + p % 128 == j`` for slot s, or
+    ENC_INVALID where that class is empty. ``max_tiles`` (longest list)
+    sizes the int8 encoding's position field.
     """
-    T = codes_tiled.shape[0]
-    Q, B, _ = tables.shape
-    q_pad = round_up(max(Q, 8), 8)
-    tsel = permute_tables_csr(tables.reshape(Q, 16 * B), B)
-    M = tsel.shape[1]
-    if q_pad != Q:
-        tsel = jnp.pad(tsel, ((0, q_pad - Q), (0, 0)))
-    kt = max(1, min(kt, T))
-    T_pad = round_up(T, kt)
-    if T_pad != T:
-        codes_tiled = jnp.pad(
-            codes_tiled, ((0, T_pad - T), (0, 0), (0, 0)))
-    out = pl.pallas_call(
-        partial(_estimate_T_kernel, KT=kt),
-        grid=(T_pad // kt,),
-        in_specs=[
-            pl.BlockSpec((q_pad, M), lambda t: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((kt, codes_tiled.shape[1], LANE_TILE),
-                         lambda t: (t, 0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((q_pad, kt * LANE_TILE),
-                               lambda t: (0, t),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((q_pad, T_pad * LANE_TILE),
-                                       jnp.int32),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 2**20),
-        interpret=interpret,
-    )(tsel, codes_tiled)
-    return out[:Q, :T * LANE_TILE]
-
-
-def fold_topk_tiled(codes_tiled, tables, true_n: int, rescore: int,
-                    interpret: bool = False):
-    """Fused full-scan + approximate top-``rescore`` candidate select.
-
-    Runs the scan_fold_csr machinery over the whole corpus (segmented
-    into pseudo-lists sized to the int32 encoding headroom, tables
-    broadcast per segment): the (Q, n) estimate matrix never reaches
-    HBM — only the (Q, segments * S) encoded fold pool does. Returns
-    ``(rows int32[Q, rescore], valid bool[Q, rescore])`` — row indices
-    into the original code matrix.
-
-    Approximation: candidates are fold-class minima (position mod S
-    per segment), the same relaxation as approx_max_k; S is sized
-    ~8x rescore. Requires int8 tables (the encoded domain).
-    """
-    import numpy as np
-    from ..utils.grouping import csr_scan_map
-    T, Bs_pad, _ = codes_tiled.shape
-    Q, B, _ = tables.shape
-    B_pad = 2 * Bs_pad
-    assert true_n >= 1 and true_n <= T * LANE_TILE
-    # largest segment (in tiles) whose positions fit the encoding
-    bits = 1
-    while (255 * B_pad + 1) << (bits + 1) <= 2**31 - 1:
-        bits += 1
-    seg_tiles = min(T, max(1, (1 << bits) // LANE_TILE))
-    C = -(-T // seg_tiles)
-    toff = np.arange(C, dtype=np.int64) * seg_tiles
-    counts = np.clip(true_n - toff * LANE_TILE, 0,
-                     seg_tiles * LANE_TILE).astype(np.int32)
-    maps = csr_scan_map(toff, counts, T)
-    W = max(1, min(seg_tiles, -(-8 * rescore // LANE_TILE)))
-    tsel = permute_tables_csr(
-        jnp.reshape(tables, (Q, 16 * B)), B)
-    q_pad = round_up(max(Q, 8), 8)
-    if q_pad != Q:
-        tsel = jnp.pad(tsel, ((0, q_pad - Q), (0, 0)))
-    tsel_b = jnp.broadcast_to(tsel[None], (C,) + tsel.shape)
-    enc = scan_fold_csr(
-        tsel_b, codes_tiled, *[jnp.asarray(m) for m in maps],
-        jnp.asarray(counts), fold_tiles=W, max_tiles=seg_tiles,
-        interpret=interpret)                     # (C, q_pad, S)
-    S = enc.shape[2]
-    pool = jnp.moveaxis(enc, 0, 1).reshape(q_pad, C * S)[:Q]
-    if C * S < rescore:                          # tiny corpus
-        pool = jnp.pad(pool, ((0, 0), (0, rescore - C * S)),
-                       constant_values=2**31 - 1)
-    _, idx = jax.lax.approx_max_k(-pool.astype(jnp.float32), rescore)
-    enc_sel = jnp.take_along_axis(pool, idx, axis=1)
-    col_bits = max(1, (seg_tiles * LANE_TILE - 1).bit_length())
-    pos = enc_sel & jnp.int32((1 << col_bits) - 1)
-    rows = (idx // S) * (seg_tiles * LANE_TILE) + pos
-    valid = enc_sel < jnp.int32(2**31 - 1)
-    return jnp.where(valid, rows, 0), valid
-
-
-@jax.jit
-def tile_codes(codes_packed):
-    """uint8[n, Bs] packed codes -> the (T, Bs_pad, 128) tile layout
-    consumed by estimate_scan_tiled (rows padded to a 128 multiple
-    with zeros; Bs padded to 8 like pack_codes_tiled)."""
-    n, Bs = codes_packed.shape
-    n_pad = round_up(max(n, LANE_TILE), LANE_TILE)
-    rows = jnp.pad(codes_packed,
-                   ((0, n_pad - n), (0, round_up(Bs, 8) - Bs)))
-    return rows.reshape(n_pad // LANE_TILE, LANE_TILE, -1
-                        ).transpose(0, 2, 1)
-
-
-# --------------------------------------------------------------------
-# CSR ragged-list fold-emit scan kernels (the IVF inner loop).
-#
-# A dense (C, cap, ...) list grid would pad every inverted list to the
-# longest list's capacity (~2x wasted scan work on Zipf-ish cluster
-# sizes). Here lists are stored ragged: codes live in a flat tile array
-# uint8[T, Bs, 128] — each list occupies ceil(len/128) consecutive
-# (Bs, 128) tiles (points on lanes, nibble-packed block-pairs on
-# sublanes) — and the kernel walks list i's tiles with double-buffered
-# DMAs from HBM using scalar-prefetched tile offsets. Per tile:
-# unpack -> one-hot -> (qc, M) x (M, 128) MXU matmul -> encoded int32
-# min-fold into a static (qc, 128 * fold_tiles) buffer that IS the
-# kernel output (selection happens downstream with one bitcast
-# approx_max_k per query over the fold rows). Only actual list tiles
-# are ever read or scanned — the ragged-lists-on-a-dense-machine
-# problem SURVEY.md §7 names, solved with scalar prefetch.
-# (Reference sidesteps raggedness with Python lists: tinyknn/ivf.py:100.)
-# --------------------------------------------------------------------
-
-LANE_TILE = 128
-
-
-def _onehot_tiled_T(codes_i32):
-    """(B, t) int32 codes -> (16B, t) int8 one-hot, transposed tiled
-    layout: row v * B + b <-> center v of block b. Points stay on the
-    lane axis, so every compare runs at full VPU lane width (the
-    row-layout variant wastes lanes whenever B < 128)."""
-    return jnp.concatenate(
-        [(codes_i32 == v).astype(jnp.int8) for v in range(16)], axis=0)
-
-
-def _unpack_evens_odds_T(codes_i32):
-    """(Bs, t) packed int32 -> (B, t): even blocks (low nibbles) then
-    odd blocks (high nibbles) — the transposed twin of
-    _unpack_evens_odds, matching the same _block_perm table order."""
-    lo = jnp.bitwise_and(codes_i32, 15)
-    hi = jnp.bitwise_and(jax.lax.shift_right_logical(codes_i32, 4), 15)
-    return jnp.concatenate([lo, hi], axis=0)
-
-
-def _scan_fold_csr_kernel(cl_ref, tile_ref, tpos_ref, last_ref,
-                          counts_ref, tsel_ref, codes_ref, enc_ref,
-                          folded, *, W: int, tps: int, enc_bias: int,
-                          col_bits: int, float_tables: bool = False):
-    """Fold-emit variant: scan + encoded min-fold only, NO in-kernel
-    top-r extraction — the (qc, S) fold buffer itself is the output.
-    Downstream, every (query, probe) pair's candidate pool is its fold
-    row, and one approx_max_k per query replaces what used to be r
-    sequential min+invalidate passes per cluster (measured ~45% of the
-    whole GloVe-scale query).
-
-    ``float_tables``: tables are bf16/f32 (the beyond-reference
-    unquantized quality mode); the encoding becomes
-    ``bf16_bits(est) << 16 | position`` — IEEE bits of non-negative
-    floats are order-preserving, so the min-fold still works, with
-    bf16 rounding only affecting pass-1 ordering (rescore is exact)."""
-    t = pl.program_id(0)
-    tp = tpos_ref[t]
-    count = counts_ref[cl_ref[t]]
-    S = W * LANE_TILE
-    qc = folded.shape[0]
-
-    @pl.when(tp == 0)
-    def _():
-        folded[...] = jnp.full((qc, S), _ENC_BIG, jnp.int32)
-
-    for i in range(tps):                          # static unroll
-        codes = codes_ref[i].astype(jnp.int32)    # (Bs, 128)
-        codes = _unpack_evens_odds_T(codes)       # (B, 128)
-        if float_tables:
-            onehot = jnp.concatenate(
-                [(codes == v).astype(jnp.bfloat16) for v in range(16)],
-                axis=0)                           # (16B, 128) bf16
-            est = jax.lax.dot_general(
-                tsel_ref[0], onehot, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)   # (qc, 128) f32
-            bits = pltpu.bitcast(est.astype(jnp.bfloat16),
-                                 jnp.int16).astype(jnp.int32)
-            val_part = jax.lax.shift_left(bits, jnp.int32(col_bits))
+    C, qc, K = q_sel.shape
+    cap = max_tiles * LANE_TILE
+    if tiles.dtype == jnp.uint8:
+        R = K // 32
+        assert R % CODE_ROWS == 0 and R >= tiles.shape[1], (
+            "q_sel must be in the kernel_tables layout")
+        if tiles.shape[1] != R:   # storage rows not a multiple of 32
+            tiles = jnp.pad(tiles, ((0, 0), (0, R - tiles.shape[1]),
+                                    (0, 0)))
+        pieces = None
+        if q_sel.dtype == jnp.int8:
+            body, bias = "pq_int8", 128 * 2 * R
+            col_bits = int8_col_bits(cap, 2 * R)
+            assert col_bits is not None, (
+                f"list of {cap} points overflows the int32 encoding; "
+                "use scan_impl='xla'")
         else:
-            onehot = _onehot_tiled_T(codes)       # (16B, 128) int8
-            est = jax.lax.dot_general(
-                tsel_ref[0], onehot, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.int32)     # (qc, 128)
-            val_part = jax.lax.shift_left(est + jnp.int32(enc_bias),
-                                          jnp.int32(col_bits))
-        lane = jax.lax.broadcasted_iota(jnp.int32, val_part.shape, 1)
-        ti = tp * tps + i
-        pos = ti * LANE_TILE + lane               # position within list
-        enc = val_part | pos
-        enc = jnp.where(pos < count, enc, _ENC_BIG)
-        seg = pl.multiple_of(jax.lax.rem(ti, W) * LANE_TILE, LANE_TILE)
-        folded[:, pl.ds(seg, LANE_TILE)] = jnp.minimum(
-            folded[:, pl.ds(seg, LANE_TILE)], enc)
-
-    @pl.when(last_ref[t] == 1)
-    def _():
-        enc_ref[0] = folded[...]
-
-
-@partial(jax.jit, static_argnames=("fold_tiles", "max_tiles",
-                                   "tiles_per_step", "interpret"))
-def scan_fold_csr(tables_sel, codes_tiled, scan_cl, scan_tile,
-                  scan_tpos, scan_last, counts,
-                  fold_tiles: int = 4, max_tiles: int = 1,
-                  tiles_per_step: int = 1, interpret: bool = False):
-    """Ragged fused scan over CSR-tiled lists, emitting the encoded
-    fold buffer per (cluster, query slot) instead of extracted top-r.
-
-    Inputs: per-cluster bucketed tables (permute_tables_csr layout),
-    CSR code tiles (pack_codes_tiled) and the csr_scan_map flat-grid
-    step maps. Returns enc int32[C, qc, S] with
-    S = fold_tiles * 128: entry [c, s, j] is the encoded
-    ``(est + 128B) << col_bits | position`` minimum over list c's
-    positions congruent to j (mod S) for query slot s, or 2^31-1 if
-    empty. Decode: valid = enc < 2^31-1; est = (enc >> col_bits) -
-    128B; position = enc & ((1 << col_bits) - 1) with col_bits =
-    bit_length(max_tiles * 128 - 1).
-    """
-    C, qc, M = tables_sel.shape
-    B = M // 16
-    assert B == 2 * codes_tiled.shape[1], "codes must be nibble-packed"
-    assert codes_tiled.shape[2] == LANE_TILE
-    float_tables = tables_sel.dtype != jnp.int8
-    if float_tables:
-        # bf16-bits << 16 | position encoding: positions need 16 bits
-        col_bits = 16
-        enc_bias = 0
-        assert max_tiles * LANE_TILE <= 1 << 16, (
-            "list too long for the float encoding; use scan_impl='xla'")
+            body, bias, col_bits = "pq_float", 0, 16
+            q_sel = q_sel.astype(jnp.bfloat16)
     else:
-        col_bits = max(1, (max_tiles * LANE_TILE - 1).bit_length())
-        enc_bias = 128 * B
-        assert (255 * B + 1) << col_bits <= 2**31 - 1, (
-            f"list too long for int32 encoding: max_tiles={max_tiles}, "
-            f"B={B}; use scan_impl='xla'")
-    W = fold_tiles
-    tps = tiles_per_step
-    assert codes_tiled.shape[0] % tps == 0
-    G = scan_cl.shape[0]
-    S = W * LANE_TILE
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=5,
-        grid=(G,),
+        assert tiles.shape[1] == K and K % 16 == 0, (tiles.shape, K)
+        body, bias, col_bits = "exact", 0, 16
+        pieces = _pow2_pieces(K)
+    if col_bits == 16:
+        assert cap <= 1 << 16, (
+            "list too long for 16-bit fold positions; raise n_clusters")
+    qb = 32 if qc % 32 == 0 else 16
+    qc_pad = round_up(qc, qb)
+    if qc_pad != qc:
+        q_sel = jnp.pad(q_sel, ((0, 0), (0, qc_pad - qc), (0, 0)))
+    S = fold_tiles * LANE_TILE
+    enc = pl.pallas_call(
+        partial(_fold_scan_kernel, W=fold_tiles, body=body,
+                pieces=pieces, col_bits=col_bits, bias=bias),
+        grid=(C, qc_pad // qb),
         in_specs=[
-            pl.BlockSpec((1, qc, M),
-                         lambda t, cl, ti, tp, lst, cnt: (cl[t], 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tps, codes_tiled.shape[1], LANE_TILE),
-                         lambda t, cl, ti, tp, lst, cnt: (ti[t], 0, 0),
-                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((C,), lambda c, j: (0,)),
+            pl.BlockSpec((C,), lambda c, j: (0,)),
+            pl.BlockSpec((None, qb, K), lambda c, j: (c, j, 0)),
+            pl.BlockSpec(tiles.shape, lambda c, j: (0, 0, 0)),
         ],
-        out_specs=[
-            pl.BlockSpec((1, qc, S),
-                         lambda t, cl, ti, tp, lst, cnt: (cl[t], 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((qc, S), jnp.int32),
-        ],
-    )
-    enc, = pl.pallas_call(
-        partial(_scan_fold_csr_kernel, W=W, tps=tps,
-                enc_bias=enc_bias, col_bits=col_bits,
-                float_tables=float_tables),
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((C, qc, S), jnp.int32)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 2**20),
+        out_specs=pl.BlockSpec((None, qb, S), lambda c, j: (c, j, 0)),
+        out_shape=jax.ShapeDtypeStruct((C, qc_pad, S), jnp.int32),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=4,
+                                                num_stages=2),
         interpret=interpret,
-    )(scan_cl.astype(jnp.int32), scan_tile.astype(jnp.int32),
-      scan_tpos.astype(jnp.int32), scan_last.astype(jnp.int32),
-      counts.astype(jnp.int32), tables_sel, codes_tiled)
-    return enc
-
-
-def _scan_exact_csr_kernel(cl_ref, tile_ref, tpos_ref, last_ref,
-                           counts_ref, qsel_ref, vecs_ref, enc_ref,
-                           folded, *, W: int, tps: int):
-    """Exact-distance fold-emit scan over raw bf16 vector tiles.
-
-    The PQ kernels above exist because the reference is CPU-memory-
-    bound; on TPU the MXU makes *exact* distances nearly free at
-    HBM-resident corpus sizes, so this kernel replaces estimate +
-    rescore entirely: per list tile, est = q_aug @ vec_tile is the true
-    squared distance (vectors are augmented with [norm_hi, norm_lo, 1]
-    rows and queries with [-2q, 1, 1, ||q||^2], so the single matmul
-    yields ||q||^2 + ||x||^2 - 2qx >= 0 exactly up to bf16 input
-    rounding), encoded as bf16_bits << 16 | position and min-folded.
-    Downstream, selection keeps only ~4k encodings and a thin exact
-    f32 rescore fixes bf16 near-tie swaps (replaces the reference's
-    scan+heap+wide-rescore, tinyknn/ivf.py:135-163, at exact-rank
-    quality with a ~10x narrower rescore sliver).
-    """
-    t = pl.program_id(0)
-    tp = tpos_ref[t]
-    count = counts_ref[cl_ref[t]]
-    S = W * LANE_TILE
-    qc = folded.shape[0]
-
-    @pl.when(tp == 0)
-    def _():
-        folded[...] = jnp.full((qc, S), _ENC_BIG, jnp.int32)
-
-    for i in range(tps):                          # static unroll
-        vecs = vecs_ref[i]                        # (d_aug, 128) bf16
-        est = jax.lax.dot_general(
-            qsel_ref[0], vecs, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)   # (qc, 128) f32
-        # bf16 input rounding can push a ~0 distance slightly negative;
-        # the IEEE-bit encoding needs >= 0 for order preservation
-        est = jnp.maximum(est, 0.0)
-        bits = pltpu.bitcast(est.astype(jnp.bfloat16),
-                             jnp.int16).astype(jnp.int32)
-        val_part = jax.lax.shift_left(bits, jnp.int32(16))
-        lane = jax.lax.broadcasted_iota(jnp.int32, val_part.shape, 1)
-        ti = tp * tps + i
-        pos = ti * LANE_TILE + lane               # position within list
-        enc = val_part | pos
-        enc = jnp.where(pos < count, enc, _ENC_BIG)
-        seg = pl.multiple_of(jax.lax.rem(ti, W) * LANE_TILE, LANE_TILE)
-        folded[:, pl.ds(seg, LANE_TILE)] = jnp.minimum(
-            folded[:, pl.ds(seg, LANE_TILE)], enc)
-
-    @pl.when(last_ref[t] == 1)
-    def _():
-        enc_ref[0] = folded[...]
-
-
-@partial(jax.jit, static_argnames=("fold_tiles", "max_tiles",
-                                   "tiles_per_step", "interpret"))
-def scan_exact_csr(q_sel, vecs_tiled, scan_cl, scan_tile,
-                   scan_tpos, scan_last, counts,
-                   fold_tiles: int = 2, max_tiles: int = 1,
-                   tiles_per_step: int = 1, interpret: bool = False):
-    """Ragged exact-distance scan over CSR-tiled raw bf16 vectors.
-
-    q_sel: bf16[C, qc, d_aug] bucketed augmented queries
-        ([-2q, 1, 1, ||q||^2] zero-padded to d_aug);
-    vecs_tiled: bf16[T, d_aug, 128] augmented vector tiles
-        ([x, norm_hi, norm_lo, 1] on sublanes, points on lanes);
-    scan maps / counts: as scan_fold_csr.
-    Returns enc int32[C, qc, S], S = fold_tiles * 128, encoded
-    ``bf16_bits(dist^2) << 16 | position`` min-fold (2^31-1 = empty).
-    """
-    C, qc, d_aug = q_sel.shape
-    assert vecs_tiled.shape[1] == d_aug
-    assert vecs_tiled.shape[2] == LANE_TILE
-    assert max_tiles * LANE_TILE <= 1 << 16, (
-        "list too long for 16-bit fold positions; raise n_clusters")
-    W = fold_tiles
-    tps = tiles_per_step
-    assert vecs_tiled.shape[0] % tps == 0
-    G = scan_cl.shape[0]
-    S = W * LANE_TILE
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=5,
-        grid=(G,),
-        in_specs=[
-            pl.BlockSpec((1, qc, d_aug),
-                         lambda t, cl, ti, tp, lst, cnt: (cl[t], 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tps, d_aug, LANE_TILE),
-                         lambda t, cl, ti, tp, lst, cnt: (ti[t], 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, qc, S),
-                         lambda t, cl, ti, tp, lst, cnt: (cl[t], 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((qc, S), jnp.int32),
-        ],
-    )
-    enc, = pl.pallas_call(
-        partial(_scan_exact_csr_kernel, W=W, tps=tps),
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((C, qc, S), jnp.int32)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 2**20),
-        interpret=interpret,
-    )(scan_cl.astype(jnp.int32), scan_tile.astype(jnp.int32),
-      scan_tpos.astype(jnp.int32), scan_last.astype(jnp.int32),
-      counts.astype(jnp.int32), q_sel, vecs_tiled)
-    return enc
-
-
-@jax.jit
-def pack_codes_tiled(codes_packed, flat_ids):
-    """Gather nibble-packed codes into the CSR tile layout.
-
-    codes_packed: uint8[n, Bs]; flat_ids: int32[T * 128] from
-    invert_assignments_csr_tiled (-1 padding reuses row 0, masked at
-    query time by counts). Returns uint8[T, Bs_pad, 128] with Bs padded
-    to a multiple of 8 (Mosaic requires HBM DMA slices sublane-aligned);
-    the phantom packed bytes are zero and their table rows are zeroed by
-    permute_tables_csr, so they never contribute to estimates.
-    """
-    rows = codes_packed[jnp.maximum(flat_ids, 0)]     # (T*128, Bs)
-    Bs = rows.shape[1]
-    rows = jnp.pad(rows, ((0, 0), (0, round_up(Bs, 8) - Bs)))
-    T = flat_ids.shape[0] // LANE_TILE
-    return rows.reshape(T, LANE_TILE, -1).transpose(0, 2, 1)
-
-
-def permute_tables_csr(tables_flat, B: int):
-    """(..., 16B) block-major tables -> the CSR kernel's tiled layout
-    (..., 16 * B_pad): storage (evens-then-odds) block order over the
-    8-sublane-padded packed width, zero rows for phantom pad blocks."""
-    import numpy as np
-    Bs_pad = round_up(B // 2, 8)
-    B_pad = 2 * Bs_pad
-    # storage col sb < Bs_pad holds logical blocks (2sb, 2sb+1); the
-    # unpack emits evens then odds
-    perm = np.concatenate([np.arange(0, B_pad, 2), np.arange(1, B_pad, 2)])
-    shape = tables_flat.shape[:-1]
-    t = tables_flat.reshape(shape + (B, 16))
-    if B_pad != B:
-        t = jnp.pad(t, [(0, 0)] * len(shape) + [(0, B_pad - B), (0, 0)])
-    t = t[..., perm, :]
-    return jnp.swapaxes(t, -1, -2).reshape(shape + (16 * B_pad,))
-
-
-def permute_tables_tiled(tables_flat, B: int, packed: bool = False):
-    """(..., 16B) tables in block-major layout -> tiled kernel layout.
-
-    ``packed``: additionally reorder blocks to the storage order the
-    in-kernel 4-bit unpack produces (evens then odds).
-    """
-    shape = tables_flat.shape[:-1]
-    t = tables_flat.reshape(shape + (B, 16))
-    if packed:
-        t = t[..., _block_perm(B), :]
-    return jnp.swapaxes(t, -1, -2).reshape(shape + (16 * B,))
+        name="csr_fold_scan",
+    )(tile_offsets.astype(jnp.int32), list_counts.astype(jnp.int32),
+      q_sel, tiles)
+    return enc[:, :qc] if qc_pad != qc else enc

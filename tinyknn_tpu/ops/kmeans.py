@@ -6,8 +6,8 @@ Replaces the reference's two sklearn.KMeans call sites:
     loop of d/dpb sklearn fits;
   * the IVF coarse clustering (reference: tinyknn/ivf.py:31-45).
 
-TPU-first structure: the assignment step is an (n, d) x (d, k) matmul on
-the MXU; the centroid update is a one-hot matmul (counts & sums) instead
+Accelerator-first structure: the assignment step is an (n, d) x (d, k)
+matrix product; the centroid update is a one-hot matmul (counts & sums) instead
 of a scatter; both run inside a ``lax.scan`` over fixed-size row chunks
 so memory stays bounded at any n. Shapes are static; masked padding rows
 carry zero weight.
@@ -24,7 +24,7 @@ from ..utils.padding import round_up
 
 
 def _pairwise_sq(X, C):
-    """(n, d), (k, d) -> (n, k) squared distances, MXU matmul form."""
+    """(n, d), (k, d) -> (n, k) squared distances, matmul form."""
     xn = jnp.einsum("ij,ij->i", X, X)
     cn = jnp.einsum("ij,ij->i", C, C)
     inner = jax.lax.dot_general(
@@ -39,7 +39,8 @@ def _init_pool(key, n: int, k: int):
     """Row indices of the k-means++ candidate pool.
 
     Seeding on the full dataset costs one full-data pass *per center*
-    (bandwidth-bound: ~500 GB of HBM reads at 1.2M rows x 1k centers);
+    (bandwidth-bound: ~500 GB of device-memory reads at 1.2M rows x 1k
+    centers);
     a 16k-point pool preserves seeding quality at a fraction of the
     traffic — the same tradeoff sklearn's MiniBatchKMeans makes.
     """
@@ -184,7 +185,7 @@ def blockwise_kmeans(key, cols, k: int = 16, iters: int = 25,
     (tinyknn/fast_pq.py:117-125) as one jitted computation. All blocks
     advance together *inside* a single chunked scan over rows — a vmap
     of whole-array kmeans would buffer per-block copies of the data and
-    blow HBM at millions of rows; this formulation's live set is one
+    blow device memory at millions of rows; this formulation's live set is one
     (B, chunk, k) block regardless of n.
     """
     B, n, dpb = cols.shape

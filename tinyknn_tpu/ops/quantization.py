@@ -6,11 +6,10 @@ query's block to each of the 16 codebook centers of that block:
 
 The reference quantizes tables to int8 with a shift/scale chosen so the
 *saturating int8* accumulation of ~n_blocks entries rarely overflows
-(reference: tinyknn/fast_pq.py:206-222). On TPU we accumulate in int32
-(MXU-native), so overflow is gone, but we keep the same int8 table
-format and heuristics: equal memory, comparable recall, and the int8
-one-hot matmul runs at the MXU's fastest rate. Everything is batched
-over queries.
+(reference: tinyknn/fast_pq.py:206-222). Here the scan accumulates in
+int32, so overflow is gone, but we keep the same int8 table format and
+heuristics: equal memory, comparable recall, and int8 operands for the
+one-hot matrix product. Everything is batched over queries.
 """
 
 from __future__ import annotations
@@ -27,7 +26,7 @@ class QuantizedTables(NamedTuple):
     """Batched quantized distance tables.
 
     tables: int8[(Q, n_blocks, 16)] — for 'unsigned' mode the stored
-        value is (true - 128) so both modes fit int8 for the MXU.
+        value is (true - 128) so both modes fit int8.
     shift:  f32[(Q,)] — per-query additive de-quantization shift.
     scale:  f32[(Q,)] — per-query multiplicative de-quantization scale.
     signed: bool — which reference quantization scheme produced this.
@@ -46,7 +45,7 @@ def block_dists_blocked(q_blocks, center_blocks):
     """q_blocks: (Q, B, dpb); center_blocks: (B, 16, dpb) -> (Q, B, 16).
 
     Expanded form ||q||^2 + ||c||^2 - 2 q.c: the cross term is a
-    batched MXU matmul and nothing materializes the (Q, B, 16, dpb)
+    batched matmul and nothing materializes the (Q, B, 16, dpb)
     difference tensor (~140 MB at 10k GloVe queries) the naive
     broadcast-subtract form writes and re-reads.
     """
@@ -86,7 +85,7 @@ def quantize_tables_unsigned(dists):
     """Reference 'unsigned' scheme (tinyknn/fast_pq.py:239-252), batched.
 
     shift = min, scale = 255 / (max * ln(B) * sqrt(B)); true table values
-    live in [0, 255] — stored biased by -128 so the int8 MXU path applies;
+    live in [0, 255] — stored biased by -128 so the int8 path applies;
     estimates get the constant 128 * B added back at de-quantization.
     """
     Q, B, _ = dists.shape
@@ -106,10 +105,10 @@ def tables_bf16(dists):
     """Unquantized bf16 tables — a beyond-reference quality mode.
 
     int32 accumulation frees us from the reference's overflow-driven
-    int8 quantization; bf16 one-hot matmuls run at the same measured
-    rate as int8 on the MXU (docs/PERFORMANCE.md), so the ~2-3 rank
-    positions the int8 rounding costs at the 90% quantile can be bought
-    back for free. Identity shift/scale keeps the QuantizedTables
+    int8 quantization, so the ~2-3 rank positions the int8 rounding
+    costs at the 90% quantile (docs/PERFORMANCE.md) can be bought back
+    with bf16 tables: they are per-query temporaries, so index memory
+    is unchanged. Identity shift/scale keeps the QuantizedTables
     contract (dequantize is a no-op plus casts).
     """
     Q = dists.shape[0]

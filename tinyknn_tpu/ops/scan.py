@@ -1,24 +1,19 @@
-"""PQ distance-estimate scan: the TPU replacement for the SIMD kernels.
+"""PQ distance-estimate scan: the replacement for the SIMD kernels.
 
 The reference's hot op sums, for each point, one 4-bit-indexed table
 entry per block, 16 points at a time with pshufb + saturating int8 adds
 (reference: tinyknn/_fast_pq.pyx:209-236, _fast_pq_256.pyx:126-156).
 
-The TPU-native statement of that math: the lookup is a contraction of a
-one-hot expansion of the codes with the tables —
+The accelerator statement of that math: the lookup is a contraction of
+a one-hot expansion of the codes with the tables —
 
     est[q, i] = sum_b tables[q, b, codes[i, b]]
              = sum_{b,c} one_hot(codes)[i, b, c] * tables[q, b, c]
 
-i.e. an (n, 16B) x (16B, Q) int8 matmul on the MXU, batched over
-queries. Accumulation is int32 (MXU-native): no saturation, no overflow
-tuning. A slow emulation of the reference's sequential saturating-int8
-semantics is kept for parity experiments and tests.
-
-Backends: 'xla' (this file), 'pallas' (ops/kernels.py; fuses the
-one-hot expansion on-chip so HBM only ever sees the small codes), or
-'auto'. This generalizes the reference's compile-time avx flag
-(tinyknn/fast_pq.py:21-27).
+i.e. an (n, 16B) x (16B, Q) int8 matrix product with int32
+accumulation, batched over queries: no saturation, no overflow tuning.
+XLA compiles it; a slow emulation of the reference's sequential
+saturating-int8 semantics is kept for parity experiments and tests.
 """
 
 from __future__ import annotations
@@ -29,30 +24,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# Registered by ops.kernels at import time to avoid a hard Pallas dep here.
-_PALLAS_IMPL = None
-
-
-def register_pallas_impl(fn):
-    global _PALLAS_IMPL
-    _PALLAS_IMPL = fn
-
-
-def _default_backend():
-    # The transposed-tile Pallas kernel (ops/kernels.py
-    # estimate_scan_tiled) beats the XLA one-hot matmul by ~40% at the
-    # margin on v5e; XLA remains the oracle and the off-TPU default.
-    import jax
-    return "pallas" if jax.default_backend() == "tpu" else "xla"
-
-
 @partial(jax.jit, static_argnames=("packed",))
-def estimate_scan_xla(codes, tables, packed: bool = False):
+def estimate_scan(codes, tables, packed: bool = False):
     """codes: uint8[n, B] (0..15), or uint8[n, B/2] nibble-packed when
     ``packed``; tables: int8[Q, B, 16] -> int32[Q, n].
 
-    The 4-bit unpack fuses into the one-hot expansion — HBM only ever
-    reads the packed bytes (half the reference-equal code memory).
+    The 4-bit unpack fuses into the one-hot expansion, so device memory
+    holds only the packed bytes (half the reference-equal code memory).
+    Float tables contract a bf16 one-hot into f32.
     """
     if packed:
         from .packing import unpack_codes
@@ -67,19 +46,6 @@ def estimate_scan_xla(codes, tables, packed: bool = False):
     return jax.lax.dot_general(
         b, a, (((1,), (1,)), ((), ())),
         preferred_element_type=jnp.float32 if floating else jnp.int32)
-
-
-def estimate_scan(codes, tables, backend: str = "auto",
-                  packed: bool = False):
-    """Batched PQ estimate; returns int32[Q, n]."""
-    if backend == "auto":
-        backend = _default_backend()
-    if backend == "pallas" and jnp.issubdtype(tables.dtype, jnp.floating):
-        backend = "xla"  # the Pallas kernel is int8-table only
-    if backend == "pallas":
-        assert _PALLAS_IMPL is not None, "pallas backend not available"
-        return _PALLAS_IMPL(codes, tables, packed)
-    return estimate_scan_xla(codes, tables, packed)
 
 
 @partial(jax.jit, static_argnames=("signed", "lanes"))

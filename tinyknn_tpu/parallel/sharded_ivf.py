@@ -1,7 +1,7 @@
 """Cluster-sharded IVF over a device mesh.
 
 The reference is strictly single-process (SURVEY.md §2.13); scaling the
-corpus beyond one chip's HBM is the TPU build's analogue of model
+corpus beyond one device's memory is this build's analogue of model
 parallelism. Design (BASELINE config 5):
 
   * the CSR tile arrays — codes (T, B/2, 128), flat ids (T * 128,) and
@@ -16,7 +16,7 @@ parallelism. Design (BASELINE config 5):
     needed until the end;
   * rescore is local too (each device holds its lists' raw vectors), so
     the only collective is an ``all_gather`` of per-device (Q, k)
-    results over ICI, followed by a replicated merge —
+    results, followed by a replicated merge —
     k * n_devices * 12 bytes per query on the wire;
   * a second mesh axis can shard the query batch (pure data
     parallelism) — compose by sharding ``q`` on dim 0; the collectives
@@ -38,8 +38,9 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from ..models.ivf import (IVF, _bucket_scan_round, _qc_caps,
                           _query_params, _refresh_stream_floors,
-                          _stream_adaptive_params)
+                          _resolve_scan_impl, _stream_adaptive_params)
 from ..models.fast_pq import _resolve_method
+from ..ops.kernels import kernel_tables
 from ..ops.topk import dedup_candidates
 from .mesh import make_mesh, replicate, shard_on_axis0
 
@@ -105,8 +106,7 @@ class ShardedIVF(IVF):
         T_l = int(max(1, (stops - starts).max())) + 1  # +1 guard tile
         guard = self.csr_codes.shape[0] - 1            # global guard tile
 
-        from ..utils.grouping import csr_scan_map
-        codes_parts, ids_parts, toffs, cnts, maps = [], [], [], [], []
+        codes_parts, ids_parts, toffs, cnts = [], [], [], []
         for s in range(n_dev):
             n_t = int(stops[s] - starts[s])
             idx = np.concatenate([
@@ -118,20 +118,8 @@ class ShardedIVF(IVF):
             toffs.append(toff_p[s * Cl:(s + 1) * Cl]
                          - (starts[s] if s * Cl < C else 0))
             cnts.append(counts_p[s * Cl:(s + 1) * Cl])
-            maps.append(np.stack(csr_scan_map(toffs[-1], cnts[-1], T_l)))
-        # pad every shard's flat-grid map to the longest (inert steps:
-        # revisit the last cluster's blocks, positioned past any count)
-        G_l = max(m.shape[1] for m in maps)
-        for i, m in enumerate(maps):
-            pad = np.zeros((4, G_l - m.shape[1]), np.int32)
-            pad[0, :] = Cl - 1          # cl
-            pad[1, :] = T_l - 1         # guard tile
-            pad[2, :] = 1 << 20         # tpos: beyond any list
-            maps[i] = np.concatenate([m, pad], axis=1)
         codes_st = jnp.concatenate(codes_parts)        # (n_dev*T_l,Bs,128)
         ids_st = jnp.concatenate(ids_parts)            # (n_dev*T_l*128,)
-        map_st = [jnp.asarray(np.concatenate([m[i] for m in maps]))
-                  for i in range(4)]                   # each (n_dev*G_l,)
         from ..models.ivf import _csr_raw_rows
         vecs_st = _csr_raw_rows(self.data, ids_st)     # flat local rescore
         toff_st = jnp.asarray(np.concatenate(toffs).astype(np.int32))
@@ -140,10 +128,9 @@ class ShardedIVF(IVF):
                           # padding centers sit far away: never probed
                           constant_values=1e9)
         (self.csr_codes, self.csr_ids, self.tile_offsets,
-         self.list_counts, self.list_vecs, *scan_map) = shard_on_axis0(
+         self.list_counts, self.list_vecs) = shard_on_axis0(
             self.mesh, codes_st, ids_st, toff_st, cnts_st, vecs_st,
-            *map_st, axis=self.axis)
-        self.scan_map = tuple(scan_map)
+            axis=self.axis)
         if self.scan_impl == "exact":
             # per-shard augmented bf16 vector tiles, rebuilt from the
             # assembled flat ids (derived state, like io.load does)
@@ -193,7 +180,6 @@ class ShardedIVF(IVF):
         single = q.ndim == 1
         if single:
             q = q[None]
-        cap = self.max_tiles * 128
         from ..utils.padding import round_up
         c_dev = self.mesh.shape[self.axis]
         q_dev = self.mesh.shape[self.query_axis] if self.query_axis else 1
@@ -214,14 +200,7 @@ class ShardedIVF(IVF):
             n_probes_max=self._n_active_real)
         method = _resolve_method(self.pass1_method)
         fold_mult = getattr(self, "fold_mult", 8)
-        scan_impl = self.scan_impl
-        if scan_impl == "auto":
-            from ..models.ivf import _fused_ok
-            scan_impl = ("fused" if jax.default_backend() == "tpu"
-                         and _fused_ok(self.pq, cap, self.max_tiles,
-                                       ((qc0, r), (qc, r_tail)),
-                                       fold_mult)
-                         else "xla")
+        scan_impl = _resolve_scan_impl(self)
 
         if self.metric == "angular":
             # tables must come from the normalized query: PQ codes
@@ -253,19 +232,20 @@ class ShardedIVF(IVF):
         qc_full, qc0_full = _qc_caps(self, q_local, n_probes, r, r_tail,
                                      qc, qc0, fold_mult,
                                      n_active=c_local)
-        codes_arg = (self.csr_vecs if scan_impl == "exact"
+        codes_arg = (self.csr_vecs if self.scan_impl == "exact"
                      else self.csr_codes)
         for _attempt in range(attempts):
             out, dropped = _sharded_query(
                 qj, tables, self.active_centers, codes_arg,
                 self.csr_ids, self.tile_offsets, self.list_counts,
-                self.scan_map, self.list_vecs,
+                self.list_vecs,
                 mesh=self.mesh, axis=self.axis, query_axis=self.query_axis,
                 metric=self.metric, k=k, n_probes=n_probes, pass_1=pass_1,
                 r=r, r_tail=r_tail, qc=qc, qc0=qc0, method=method,
                 scan_impl=scan_impl, max_tiles=self.max_tiles,
                 build_probes=getattr(self, "build_probes", 2),
-                fold_mult=fold_mult)
+                fold_mult=fold_mult,
+                scan_budget_bytes=self.scan_budget_bytes)
             out, dropped = jax.device_get((out, dropped))
             if _attempt + 1 == attempts or int(dropped) == 0:
                 break
@@ -320,7 +300,6 @@ def _sharded_stream_method(self, batches, k, n_probes=1, pass_1=None,
             "call (with_stats=True, device_out=False)")
     batches = np.asarray(batches, dtype=np.float32)
     _, Qb, _ = batches.shape
-    cap = self.max_tiles * 128
     c_dev = self.mesh.shape[self.axis]
     q_dev = self.mesh.shape[self.query_axis] if self.query_axis else 1
     C_pad = self.tile_offsets.shape[0]
@@ -342,14 +321,7 @@ def _sharded_stream_method(self, batches, k, n_probes=1, pass_1=None,
             Q=q_local, n_active=c_local,
             n_probes_max=self._n_active_real)
     k, n_probes, pass_1, r, r_tail, qc, qc0 = params
-    scan_impl = self.scan_impl
-    if scan_impl == "auto":
-        from ..models.ivf import _fused_ok
-        scan_impl = ("fused" if jax.default_backend() == "tpu"
-                     and _fused_ok(self.pq, cap, self.max_tiles,
-                                   ((qc0, r), (qc, r_tail)),
-                                   fold_mult)
-                     else "xla")
+    scan_impl = _resolve_scan_impl(self)
     if self.metric == "angular":
         batches = batches / np.maximum(
             np.linalg.norm(batches, axis=2, keepdims=True), 1e-12)
@@ -358,16 +330,17 @@ def _sharded_stream_method(self, batches, k, n_probes=1, pass_1=None,
                         NamedSharding(self.mesh, qspec))
     out, dropped = _sharded_query_stream(
         qb, self.pq.center_blocks, self.pq.R, self.active_centers,
-        self.csr_vecs if scan_impl == "exact" else self.csr_codes,
+        self.csr_vecs if self.scan_impl == "exact" else self.csr_codes,
         self.csr_ids, self.tile_offsets,
-        self.list_counts, self.scan_map, self.list_vecs,
+        self.list_counts, self.list_vecs,
         mesh=self.mesh, axis=self.axis, query_axis=self.query_axis,
         metric=self.metric, k=k, n_probes=n_probes, pass_1=pass_1,
         r=r, r_tail=r_tail, qc=qc, qc0=qc0, method=method,
         scan_impl=scan_impl, max_tiles=self.max_tiles,
         build_probes=getattr(self, "build_probes", 2),
         dpb=self.pq.dims_per_block,
-        table_dtype=self.pq.table_dtype, fold_mult=fold_mult)
+        table_dtype=self.pq.table_dtype, fold_mult=fold_mult,
+        scan_budget_bytes=self.scan_budget_bytes)
     if device_out:
         return out, dropped
     # one transfer for both: the drop check is free per clean call
@@ -400,13 +373,14 @@ ShardedIVF.query_stream = _sharded_stream_method
                           "n_probes", "pass_1", "r", "r_tail", "qc",
                           "qc0", "method", "scan_impl", "max_tiles",
                           "build_probes", "dpb", "table_dtype",
-                          "fold_mult"))
+                          "fold_mult", "scan_budget_bytes"))
 def _sharded_query_stream(qb, center_blocks, Rm, centers, csr_codes,
-                          csr_ids, tile_offsets, list_counts, scan_map,
+                          csr_ids, tile_offsets, list_counts,
                           list_vecs, *, mesh, axis, query_axis, metric,
                           k, n_probes, pass_1, r, r_tail, qc, qc0,
                           method, scan_impl, max_tiles, build_probes,
-                          dpb, table_dtype="int8", fold_mult=8):
+                          dpb, table_dtype="int8", fold_mult=8,
+                          scan_budget_bytes=2 << 30):
     from ..models.fast_pq import _build_tables
     spec_s = P(axis)
     spec_q = P(None, query_axis) if query_axis else P()
@@ -415,12 +389,12 @@ def _sharded_query_stream(qb, center_blocks, Rm, centers, csr_codes,
                    metric=metric, k=k, n_probes=n_probes, pass_1=pass_1,
                    r=r, r_tail=r_tail, qc=qc, qc0=qc0, method=method,
                    scan_impl=scan_impl, max_tiles=max_tiles,
-                   build_probes=build_probes, fold_mult=fold_mult)
+                   build_probes=build_probes, fold_mult=fold_mult,
+                   scan_budget_bytes=scan_budget_bytes)
 
-    def stream(qb, centers, codes_l, ids_l, toff_l, counts_l, smap_l,
-               vecs_l):
+    def stream(qb, centers, codes_l, ids_l, toff_l, counts_l, vecs_l):
         def body(q):
-            if scan_impl == "exact":
+            if scan_impl in ("exact", "exact_xla"):
                 # batches were normalized before the dispatch (angular)
                 from ..models.ivf import _augment_queries
                 tables = _augment_queries(q)
@@ -428,30 +402,30 @@ def _sharded_query_stream(qb, center_blocks, Rm, centers, csr_codes,
                 tables = _build_tables(q, center_blocks, Rm, dpb,
                                        True, table_dtype).tables
             ids, _, dropped = step(q, tables, centers, codes_l, ids_l,
-                                   toff_l, counts_l, smap_l, vecs_l)
+                                   toff_l, counts_l, vecs_l)
             return ids, dropped
         ids, dropped = jax.lax.map(body, qb)
         return ids, jnp.sum(dropped)
 
     return jax.shard_map(
         stream, mesh=mesh,
-        in_specs=(spec_q, P(), spec_s, spec_s, spec_s, spec_s,
-                  (spec_s,) * 4, spec_s),
+        in_specs=(spec_q, P(), spec_s, spec_s, spec_s, spec_s, spec_s),
         out_specs=(spec_q, P()), check_vma=False,
     )(qb, centers, csr_codes, csr_ids, tile_offsets, list_counts,
-      scan_map, list_vecs)
+      list_vecs)
 
 
 @partial(jax.jit,
          static_argnames=("mesh", "axis", "query_axis", "metric", "k",
                           "n_probes", "pass_1", "r", "r_tail", "qc", "qc0",
                           "method", "scan_impl", "max_tiles",
-                          "build_probes", "fold_mult"))
+                          "build_probes", "fold_mult",
+                          "scan_budget_bytes"))
 def _sharded_query(q, tables, centers, csr_codes, csr_ids, tile_offsets,
-                   list_counts, scan_map, list_vecs, *, mesh, axis,
+                   list_counts, list_vecs, *, mesh, axis,
                    query_axis, metric, k, n_probes, pass_1, r, r_tail,
                    qc, qc0, method, scan_impl, max_tiles, build_probes,
-                   fold_mult=8):
+                   fold_mult=8, scan_budget_bytes=2 << 30):
     spec_s = P(axis)
     spec_q = P(query_axis) if query_axis else P()
     spec_r = P()
@@ -462,7 +436,7 @@ def _sharded_query(q, tables, centers, csr_codes, csr_ids, tile_offsets,
                    n_probes=n_probes, pass_1=pass_1, r=r, r_tail=r_tail,
                    qc=qc, qc0=qc0, method=method, scan_impl=scan_impl,
                    max_tiles=max_tiles, build_probes=build_probes,
-                   fold_mult=fold_mult)
+                   fold_mult=fold_mult, scan_budget_bytes=scan_budget_bytes)
     # check_vma=False: outputs are replicated along the cluster axis by
     # construction (they come out of an all_gather/psum + identical
     # replicated math), which the varying-axes checker cannot infer
@@ -470,18 +444,18 @@ def _sharded_query(q, tables, centers, csr_codes, csr_ids, tile_offsets,
     ids, d2, dropped = jax.shard_map(
         step, mesh=mesh,
         in_specs=(spec_q, spec_q, spec_r, spec_s, spec_s, spec_s, spec_s,
-                  (spec_s,) * 4, spec_s),
+                  spec_s),
         out_specs=(spec_q, spec_q, spec_r), check_vma=False,
     )(q, tables, centers, csr_codes, csr_ids, tile_offsets, list_counts,
-      scan_map, list_vecs)
+      list_vecs)
     return ids, dropped
 
 
 def _shard_local_query(q, tables, centers, codes_l, ids_l, toff_l,
-                       counts_l, scan_map_l, vecs_l, *, axis, psum_axes,
+                       counts_l, vecs_l, *, axis, psum_axes,
                        metric, k, n_probes, pass_1, r, r_tail, qc, qc0,
                        method, scan_impl, max_tiles, build_probes,
-                       fold_mult=8):
+                       fold_mult=8, scan_budget_bytes=2 << 30):
     """Per-shard body: local two-round bucketed scan (shared with the
     single-chip path, models/ivf.py) + local rescore + gather-merge.
     codes_l/ids_l/toff_l/counts_l are the shard's local CSR tile arrays;
@@ -513,27 +487,28 @@ def _shard_local_query(q, tables, centers, codes_l, ids_l, toff_l,
     is_local = (local_c >= 0) & (local_c < Cl)
     probes_local = jnp.where(is_local, local_c, Cl)
 
-    if scan_impl == "exact":
+    f = min(build_probes, n_probes)
+    if scan_impl in ("exact", "exact_xla"):
         tables_flat = tables          # (Q, d_aug) augmented bf16
+        if scan_impl == "exact_xla":  # see models/ivf.py _ivf_query
+            cap = max_tiles * 128
+            r = min(r, f * pass_1, cap)
+            r_tail = min(r_tail, f * pass_1, cap)
     else:
         tables_flat = tables.reshape(Q, B * 16)
         if scan_impl == "fused":
-            from ..ops.kernels import permute_tables_csr
-            tables_flat = permute_tables_csr(tables_flat, B)
-            if tables_flat.dtype == jnp.float32:
-                tables_flat = tables_flat.astype(jnp.bfloat16)
+            tables_flat = kernel_tables(tables_flat, B)
 
-    v0, rows0, drop0 = _bucket_scan_round(
-        probes_local[:, :1], tables_flat, codes_l, ids_l, toff_l,
-        counts_l, scan_map_l, qc=qc0, r=r, method=method,
-        scan_impl=scan_impl, max_tiles=max_tiles, fold_mult=fold_mult)
+    scan = partial(_bucket_scan_round, tables_flat=tables_flat,
+                   csr_codes=codes_l, csr_ids=ids_l, tile_offsets=toff_l,
+                   list_counts=counts_l, method=method,
+                   scan_impl=scan_impl, max_tiles=max_tiles,
+                   fold_mult=fold_mult,
+                   scan_budget_bytes=scan_budget_bytes)
+    v0, rows0, drop0 = scan(probes_local[:, :1], qc=qc0, r=r)
     dropped = drop0
     if P_ > 1:
-        v1, rows1, drop1 = _bucket_scan_round(
-            probes_local[:, 1:], tables_flat, codes_l, ids_l, toff_l,
-            counts_l, scan_map_l, qc=qc, r=r_tail, method=method,
-            scan_impl=scan_impl, max_tiles=max_tiles,
-            fold_mult=fold_mult)
+        v1, rows1, drop1 = scan(probes_local[:, 1:], qc=qc, r=r_tail)
         dropped = dropped + drop1
 
     # No big-pool dedup (costs ~half the query at scale): duplicates
@@ -542,7 +517,6 @@ def _shard_local_query(q, tables, centers, codes_l, ids_l, toff_l,
     # dedup post-rescore on a k*f sliver (see models/ivf.py).
     from ..models.fast_pq import pass1_topk
     from ..models.ivf import ENC_INVALID, _select_pool_enc
-    f = min(build_probes, n_probes)
     if scan_impl in ("fused", "exact"):
         # non-local probe pairs are invalidated in the encoded domain;
         # selection + survivor-only decode shared with the single-chip
@@ -632,8 +606,8 @@ def lloyd_step_dp(X, centers, mesh, axis: str = "shards"):
     """One data-parallel Lloyd iteration over the mesh.
 
     ``X`` sharded on dim 0, ``centers`` replicated; local partial
-    sums/counts are combined with psum — the canonical TPU training-step
-    shape (local compute + ICI collective).
+    sums/counts are combined with psum — the canonical data-parallel
+    training-step shape (local compute + collective).
     """
     def step(Xl, C):
         d2 = (jnp.einsum("nd,nd->n", Xl, Xl)[:, None]

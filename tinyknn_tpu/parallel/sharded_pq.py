@@ -17,7 +17,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import PartitionSpec as P
 
-from ..models.fast_pq import FastPQ, _build_tables, pass1_topk
+from ..models.fast_pq import (FastPQ, _build_tables, _resolve_method,
+                              pass1_topk)
 from ..ops.scan import estimate_scan
 from ..utils.padding import round_up
 from .mesh import make_mesh, replicate, shard_on_axis0
@@ -69,31 +70,25 @@ class ShardedFastPQ:
         local_n = self.codes.shape[0] // n_dev
         rescore = min(rescore, local_n)
         k = min(k, rescore)
-        if method == "auto":
-            method = ("approx" if jax.default_backend() == "tpu"
-                      else "exact")
+        method = _resolve_method(method)
         qj = replicate(self.mesh, jnp.asarray(qn))
         out = _sharded_search(
             qj, self.codes, self.vectors, self.pq.center_blocks, self.pq.R,
             mesh=self.mesh, axis=self.axis, dpb=self.pq.dims_per_block,
-            true_n=self.true_n, k=k, rescore=rescore, method=method,
-            backend=self.pq.backend)
+            true_n=self.true_n, k=k, rescore=rescore, method=method)
         return out[0] if single else out
 
 
 @partial(jax.jit, static_argnames=("mesh", "axis", "dpb", "true_n", "k",
-                                   "rescore", "method", "backend"))
+                                   "rescore", "method"))
 def _sharded_search(q, codes, vectors, center_blocks, R, *, mesh, axis,
-                    dpb, true_n, k, rescore, method, backend="auto"):
+                    dpb, true_n, k, rescore, method):
     def step(q, codes_l, vecs_l):
         me = jax.lax.axis_index(axis)
         local_n = codes_l.shape[0]
         base = me * local_n
         tables = _build_tables(q, center_blocks, R, dpb, True).tables
-        # the backend dispatcher picks the tiled Pallas kernel on TPU
-        # (each device scans its local shard with the production
-        # kernel under shard_map; XLA one-hot matmul elsewhere)
-        est = estimate_scan(codes_l, tables, backend,
+        est = estimate_scan(codes_l, tables,
                             packed=True)               # (Q, local_n) int32
         # mask global padding rows (only the last shard has any)
         gids = base + jnp.arange(local_n)

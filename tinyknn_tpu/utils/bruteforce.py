@@ -1,10 +1,10 @@
 """Exact (brute-force) distance math — both library code and test oracle.
 
-TPU-native counterpart of the reference's NumPy brute-force layer
+Accelerator counterpart of the reference's NumPy brute-force layer
 (reference: tinyknn/utils.py:22-92). Where the reference chunks matmuls
 in Python to stay inside CPU cache, here everything is a single jitted
-XLA computation: the (n, d) x (d, m) distance matmul is exactly what the
-MXU is built for, and ``jax.lax.top_k`` replaces argpartition.
+XLA computation: the (n, d) x (d, m) distance matmul, and
+``jax.lax.top_k`` replaces argpartition.
 
 All functions accept NumPy or JAX arrays and return JAX arrays.
 """
@@ -22,13 +22,13 @@ def sq_dists(X, Y):
     """Squared Euclidean distances: R[i, j] = ||X_i - Y_j||^2.
 
     Computed as ||x||^2 + ||y||^2 - 2<x, y> with the inner-product term
-    on the MXU in float32.
+    a float32 matrix product.
 
     precision=HIGHEST everywhere: this is the library's ground-truth
-    oracle. TPU matmuls at DEFAULT precision truncate f32 inputs to
-    bf16 — measured to swap ~2% of top-10 ids on GloVe-scale clustered
-    near-ties (round-5 `examples/r5_ceiling_analysis.py`: the "0.981
-    coverage ceiling" was this artifact; true coverage is 0.9995).
+    oracle. A matmul at DEFAULT precision rounds its f32 inputs (to
+    TF32 on the GPU), which swaps near-tie ids: a truth computed with
+    bf16-rounded inputs once carried ~2% wrong top-10 ids on the
+    GloVe-shape clustered data (docs/PERFORMANCE.md).
     """
     X = jnp.asarray(X, jnp.float32)
     Y = jnp.asarray(Y, jnp.float32)
@@ -108,7 +108,7 @@ def _knn_brute_jit(X, Y, k: int, metric: str, chunk: int):
         _, idx = jax.lax.top_k(-sq_dists(X, Y), k)
         return idx
     # Memory-bounded path: scan fixed-size row chunks so the (n, m)
-    # distance matrix never materializes (the TPU analogue of the
+    # distance matrix never materializes (the device analogue of the
     # reference's cache-friendly chunking, tinyknn/utils.py:81-85).
     n_pad = n + (-n) % chunk
     Xp = jnp.pad(X, ((0, n_pad - n), (0, 0))).reshape(-1, chunk, d)

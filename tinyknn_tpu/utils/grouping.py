@@ -1,7 +1,7 @@
 """Inverted-list construction.
 
 The reference builds its IVF lists as Python lists-of-arrays with an
-argsort/run-length sweep (reference: tinyknn/utils.py:95-162). A TPU
+argsort/run-length sweep (reference: tinyknn/utils.py:95-162). A jitted
 index needs *dense, static-shape* structures instead, so the primary
 product here is a padded id grid:
 
@@ -11,7 +11,7 @@ product here is a padded id grid:
 plus a CSR view (flat ids + offsets) for ragged kernels. Everything is
 host-side NumPy — index build is a one-off — with a C++ counting-sort
 fast path (native/tinyknn_native.cpp) used when available for both the
-dense grid and the production lane-tiled CSR builder; the NumPy paths
+dense grid and the production tiled CSR builder; the NumPy paths
 are bit-identical fallbacks (tests/test_native.py).
 """
 
@@ -67,11 +67,11 @@ def invert_assignments(assignments, n_lists: int, pad_to: int = 8,
 def invert_assignments_csr_tiled(assignments, n_lists: int,
                                  tile: int = 128, align_tiles: int = 1,
                                  use_native: bool = True):
-    """Lane-tiled CSR inverted lists for the ragged Pallas scan.
+    """Tiled CSR inverted lists for the ragged list scan.
 
     Each list's member ids are laid out contiguously and padded with -1
-    to a multiple of ``tile`` (the TPU lane width), so a list is a whole
-    number of (tile,)-wide code tiles the kernel can DMA directly.
+    to a multiple of ``tile``, so a list is a whole number of
+    (tile,)-wide code tiles.
 
     Returns ``(flat_ids, tile_offsets, counts)``:
       flat_ids:     (N_pad,) int32, -1 padding; N_pad is a multiple of
@@ -83,8 +83,8 @@ def invert_assignments_csr_tiled(assignments, n_lists: int,
 
     Replaces the dense grid's pad-to-max-length waste (the reference
     sidesteps ragged lists with Python lists, tinyknn/ivf.py:100-102;
-    a TPU index needs static shapes — this is the static-shape ragged
-    encoding).
+    a jitted index needs static shapes — this is the static-shape
+    ragged encoding).
 
     Uses the C++ counting-sort scatter (native/tinyknn_native.cpp
     fill_csr_tiled) when available — O(N*p) with no comparison sort;
@@ -106,7 +106,7 @@ def invert_assignments_csr_tiled(assignments, n_lists: int,
             return out
     counts = np.bincount(flat, minlength=n_lists).astype(np.int32)
     ntiles = -(-counts.astype(np.int64) // tile)
-    if align_tiles > 1:  # lists start on multi-tile kernel-step bounds
+    if align_tiles > 1:  # lists start on multi-tile bounds
         ntiles = -(-ntiles // align_tiles) * align_tiles
     tile_offsets64 = np.zeros(n_lists, dtype=np.int64)
     np.cumsum(ntiles[:-1], out=tile_offsets64[1:])
@@ -121,37 +121,6 @@ def invert_assignments_csr_tiled(assignments, n_lists: int,
     pos = np.arange(flat.size, dtype=np.int64) - starts[sorted_lists]
     flat_ids[tile_offsets64[sorted_lists] * tile + pos] = point_ids
     return flat_ids, tile_offsets64.astype(np.int32), counts
-
-
-def csr_scan_map(tile_offsets, counts, n_tiles_total: int,
-                 tile: int = 128, tiles_per_step: int = 1):
-    """Flat-grid step maps for the CSR scan kernel.
-
-    The kernel runs one grid step per ``tiles_per_step`` 128-point list
-    tiles (plus one dummy step per *empty* list, pointing at the guard
-    tile, so every list's output block gets written); lists must be
-    aligned to ``tiles_per_step`` tiles (invert_assignments_csr_tiled's
-    ``align_tiles``). Returns int32 arrays ``(cl, step_idx, tpos,
-    last)`` of length G: owning list, storage block index (in
-    tiles_per_step units), position within the list's walk, and a
-    last-step flag that triggers candidate extraction.
-    """
-    toff = np.asarray(tile_offsets, dtype=np.int64)
-    counts = np.asarray(counts, dtype=np.int64)
-    C = counts.shape[0]
-    tps = tiles_per_step
-    nsteps = -(-counts // (tile * tps))
-    n_eff = np.maximum(nsteps, 1)
-    G = int(n_eff.sum())
-    cl = np.repeat(np.arange(C, dtype=np.int32), n_eff)
-    starts = np.zeros(C + 1, np.int64)
-    np.cumsum(n_eff, out=starts[1:])
-    tpos = (np.arange(G, dtype=np.int64) - starts[cl]).astype(np.int32)
-    step_idx = (toff[cl] // tps + tpos).astype(np.int32)
-    step_idx = np.where(nsteps[cl] == 0,
-                        np.int32(n_tiles_total // tps - 1), step_idx)
-    last = (tpos == (n_eff[cl] - 1)).astype(np.int32)
-    return cl, step_idx, tpos, last
 
 
 def invert_assignments_csr(assignments, n_lists: int):

@@ -1,7 +1,6 @@
 """Shape-padding helpers.
 
-TPU arrays want tile-aligned shapes ((8, 128) for f32, (32, 128) for int8),
-and the PQ code layout wants row/column counts that are multiples of the
+The PQ code layout wants row/column counts that are multiples of the
 block tiling. These helpers mirror the reference's zero-padding utilities
 (reference: tinyknn/utils.py:6-19) but operate on either NumPy or JAX
 arrays and always return the input dtype.
